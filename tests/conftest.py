@@ -56,7 +56,7 @@ def pytest_collection_modifyitems(config, items):
 
     for item in items:
         base = os.path.basename(str(item.fspath))
-        if base in _QUICK_FILES:
+        if base in _QUICK_FILES or base.startswith("test_torch_"):
             item.add_marker(pytest.mark.quick)
         else:
             item.add_marker(pytest.mark.slow)
