@@ -75,6 +75,10 @@ class ORBPipeline:
         self.sample_table = orb_ops.bin_sample_table(
             orb_ops.make_brief_pattern(orb.pattern_seed), self.device)
         self.resize_w = pyr_ops.resize_weights(self.sizes, self.device)
+        # (h, w) of each level in its (H, W) slot: the FAST kernel computes
+        # only the tiles that meet them and writes 0 beyond them.
+        self.level_extents = torch.tensor(self.sizes, dtype=torch.int32,
+                                          device=self.device)
 
     # -- stage 1 ----------------------------------------------------------
     def detect_keypoints(self, image: torch.Tensor):
@@ -84,10 +88,11 @@ class ORBPipeline:
         blurred = pyr_ops.blur_pyramid(pyr)
 
         # FAST margin + NMS for all levels in one kernel launch. Each level
-        # is its own image (circle reads wrap within the level slot); the
-        # wrap and the zero padding beyond a level's extent land inside the
-        # detection border and are masked by the selection.
-        margins = fast_margin_nms(pyr)
+        # is its own image: circle reads wrap within its zero-padded H x W
+        # slot, not within the level, and the margins are kept only inside
+        # the level's extent. Both the wrap and the padding reach no further
+        # than the detection border, which the selection masks.
+        margins = fast_margin_nms(pyr, self.level_extents)
 
         per_level = []
         for lvl, ((h, w), budget) in enumerate(zip(self.sizes, self.budgets)):

@@ -14,7 +14,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -42,11 +42,13 @@ def source_path(name: str) -> Path:
     return CSRC_DIR / f"{name}.cu"
 
 
+def _library_path(source: Path, flags: Sequence[str]) -> Path:
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{source.stem}-{digest}.so"
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(
-        source_path(name).read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    return _library_path(source_path(name), NVCC_FLAGS)
 
 
 def log_path(name: str) -> Path:
@@ -54,29 +56,28 @@ def log_path(name: str) -> Path:
     return library_path(name).with_suffix(".log")
 
 
-def build(names: Iterable[str]) -> None:
-    """Compile every named source that is not built yet, one nvcc process
-    per source, all started together. Raises if any compile fails."""
-    todo = [n for n in names if not library_path(n).exists()]
+def _compile(jobs: Sequence[Tuple[Path, Sequence[str]]]) -> List[Path]:
+    """Compile each (source, flags) job that is not built yet, one nvcc
+    process per job, all started together. Returns the libraries' paths;
+    raises if any compile fails."""
+    outs = [_library_path(src, flags) for src, flags in jobs]
+    todo = [(src, flags, out) for (src, flags), out in zip(jobs, outs) if not out.exists()]
     if not todo:
-        return
+        return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = []
     try:
-        for name in todo:
-            out = library_path(name)
+        for src, flags, out in todo:
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            with open(log_path(name), "w") as log:
-                p = subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))],
-                    stdout=log, stderr=subprocess.STDOUT,
-                )
-            procs.append((name, p, tmp, out))
+            with open(out.with_suffix(".log"), "w") as log:
+                p = subprocess.Popen([nvcc, *flags, "-o", str(tmp), str(src)],
+                                     stdout=log, stderr=subprocess.STDOUT)
+            procs.append((src, p, tmp, out))
         failed = []
-        for name, p, tmp, out in procs:
+        for src, p, tmp, out in procs:
             if p.wait() != 0:
-                failed.append(name)
+                failed.append((src, out))
             else:
                 os.replace(tmp, out)
     finally:
@@ -85,8 +86,22 @@ def build(names: Iterable[str]) -> None:
                 p.kill()
                 p.wait()
     if failed:
-        logs = "\n".join(log_path(n).read_text() for n in failed)
-        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+        logs = "\n".join(out.with_suffix(".log").read_text() for _, out in failed)
+        raise RuntimeError(f"nvcc failed for {[str(s) for s, _ in failed]}:\n{logs}")
+    return outs
+
+
+def build(names: Iterable[str]) -> None:
+    """Compile every named ``csrc/`` source that is not built yet, all
+    together. Raises if any compile fails."""
+    _compile([(source_path(n), NVCC_FLAGS) for n in names])
+
+
+def build_sources(jobs: Sequence[Tuple[Path, Sequence[str]]]) -> List[Path]:
+    """Compile any sources, each with NVCC_FLAGS plus its own extra flags
+    (``-D`` switches, say), all together, into ``build/kernels/``; for
+    timing variants of a kernel. Returns the libraries' paths."""
+    return _compile([(Path(src), (*NVCC_FLAGS, *extra)) for src, extra in jobs])
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -8,8 +8,14 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases, each fatal on failure (non-zero exit, no result line):
   1. build   -- nvcc builds every CUDA kernel of the path from csrc/.
   2. kernels -- each kernel against its plain PyTorch version on the card,
-                exact equality, at the shapes the main path gives it and at
-                extra shapes; CUDA-event timings (median of 50 after warm-up).
+                exact equality, at the shapes and extents the main path gives
+                it and at extra shapes (negative values, ragged extents);
+                timings (ops/kernels/timing.py): median over 5 runs of N
+                back-to-back launches between two CUDA events, divided by
+                N, after warm-up, the stream held by a spin kernel while the
+                host enqueues; nvidia-smi's SM clock and power sampled
+                before, after and under load; the bound from the bytes and
+                operations that the extents need.
   3. main    -- RGBDOdometry at 640x480 (8 levels, 1000 features) over the
                 30-frame synthetic sequence of tests/test_odometry_e2e.py,
                 with the same gates (inliers > 50, ATE < 2 cm, RPE-t < 1 cm)
@@ -23,7 +29,6 @@ from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 
@@ -36,40 +41,14 @@ from amos_slam_tpu_torch.io import evaluate, synthetic
 from amos_slam_tpu_torch.ops import pyramid
 from amos_slam_tpu_torch.ops.kernels import build
 from amos_slam_tpu_torch.ops.kernels import fast_margin_nms as fmn_mod
-
-# NVIDIA H100 SXM data-sheet peaks (dense): HBM bandwidth, f32 non-tensor rate.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
+from amos_slam_tpu_torch.ops.kernels import timing
 
 N_FRAMES = 30
-WARMUP, REPS = 5, 50
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def time_ms(fn, x) -> float:
-    """Median CUDA-event time of fn(x) over REPS single launches."""
-    for _ in range(WARMUP):
-        fn(x)
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(REPS)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(REPS)]
-    for s, e in zip(starts, ends):
-        s.record()
-        fn(x)
-        e.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
-
-
-def bound(numel: int, ops_per_px: int):
-    """Least time for a (B,H,W) f32 -> (B,H,W) f32 pass: bytes (read + write
-    once) over HBM bandwidth vs operations over the f32 rate."""
-    t_bytes = 2 * 4 * numel / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops_per_px * numel / PEAK_F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def main() -> int:
@@ -95,18 +74,21 @@ def main() -> int:
     sizes = cfg.orb.level_sizes(cam.width, cam.height)
     gray0 = torch.from_numpy(frames[0][0]).to(dev)
     pyr = pyramid.build_pyramid(gray0, sizes)                  # (8, 480, 640)
+    levels = torch.tensor(sizes, dtype=torch.int32, device=dev)
     rng = np.random.default_rng(0)
     rand = torch.from_numpy(
-        np.round(rng.uniform(0, 255, (3, 70, 128))).astype(np.float32)).to(dev)
+        np.round(rng.uniform(-50, 255, (3, 70, 128))).astype(np.float32)).to(dev)
+    ragged = torch.tensor([[70, 128], [37, 65], [1, 1]], dtype=torch.int32, device=dev)
     cases = {
-        "pyramid": pyr,
-        "random_3x70x128": rand,
-        "single_1x480x640": gray0[None].contiguous(),
+        "pyramid_level_extents": (pyr, levels),
+        "pyramid_whole_canvas": (pyr, None),
+        "random_3x70x128_ragged_extents": (rand, ragged),
+        "single_1x480x640": (gray0[None].contiguous(), None),
     }
     max_err = 0.0
-    for name, x in cases.items():
-        out_k = fmn(x)
-        out_p = fmn_mod.fast_margin_nms_plain(x)
+    for name, (x, ext) in cases.items():
+        out_k = fmn(x, ext)
+        out_p = fmn_mod.fast_margin_nms_plain(x, ext)
         torch.cuda.synchronize()
         err = float((out_k - out_p).abs().max())
         exact = bool(torch.equal(out_k, out_p))
@@ -114,11 +96,34 @@ def main() -> int:
               f"max_abs_err={err} nonzero={int((out_k > 0).sum())}")
         check(exact, f"{fmn_mod.NAME} differs from its plain version on {name}")
         max_err = max(max_err, err)
-    ms = time_ms(fmn, pyr)
-    plain_ms = time_ms(fmn_mod.fast_margin_nms_plain, pyr)
-    bound_ms, bound_by = bound(pyr.numel(), fmn_mod.OPS_PER_PIXEL)
-    print(f"timing {fmn_mod.NAME} {tuple(pyr.shape)}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+
+    # timing on the main path's input, warm in L2 as in the pipeline
+    smi_query = "clocks.sm,power.draw,power.limit"
+    smi_before = timing.smi(smi_query)
+    ms, runs_ms, held = timing.loop_ms(lambda: fmn(pyr, levels), launches=200)
+    smi_after = timing.smi(smi_query)
+    smi_load = timing.smi_under_load(smi_query, lambda: fmn(pyr, levels))
+    plain_ms, _, _ = timing.loop_ms(
+        lambda: fmn_mod.fast_margin_nms_plain(pyr, levels), launches=10, hold=False)
+    read_px = sum(h * w for h, w in sizes)
+    ops = fmn_mod.OPS_PER_PIXEL * read_px
+    bound_ms, bound_by = timing.bound(4 * read_px, 4 * pyr.numel(), ops)
+    mhz = timing.sm_mhz(smi_load + [smi_after])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    print(json.dumps({
+        "timing": fmn_mod.NAME, "shape": list(pyr.shape), "extents": "level sizes",
+        "method": "median of 5 runs x 200 launches between CUDA events / 200, "
+                  "stream held by a spin kernel while the host enqueues",
+        "ms": ms, "runs_ms": runs_ms, "runs_queue_held": held, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "read_px": read_px, "write_px": pyr.numel(), "ops": ops,
+        "ops_ms_one_per_lane_per_clock":
+            None if mhz is None else timing.lane_ms(ops, mhz, n_sm),
+        "sm_mhz_max_sampled": mhz, "sms": n_sm,
+        "smi_clocks_sm_power_draw_limit_before": smi_before,
+        "smi_clocks_sm_power_draw_limit_after": smi_after,
+        "smi_under_load": smi_load,
+    }))
 
     # 3. the main path
     odo = RGBDOdometry(cfg)
@@ -202,11 +207,7 @@ def main() -> int:
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
     }]}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    print(smi.stdout.strip().splitlines()[0])
+    print(timing.smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -6,14 +6,29 @@ machine with a card and no JAX:
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 
 Tests marked ``cuda`` skip without a card. Tolerance: exact equality (the
-FAST kernel does only subtractions, minima and maxima).
+FAST kernel does only subtractions, minima, maxima and selects), with and
+without per-image extents, on inputs with negative values and nonzero
+padding beyond the extents.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from amos_slam_tpu_torch.config import ORBConfig
 from amos_slam_tpu_torch.ops.kernels import fast_margin_nms as fmn_mod
+
+LEVELS = [list(s) for s in ORBConfig().level_sizes(640, 480)]
+# name -> ((B, H, W), extents or None, lowest input value)
+EXTENT_CASES = {
+    "main_path_levels": ((8, 480, 640), LEVELS, -50),
+    "main_path_canvas": ((8, 480, 640), None, 0),
+    "ragged": ((3, 70, 128), [[70, 128], [37, 65], [1, 1]], -50),
+    "ragged_odd_width": ((3, 33, 65), [[33, 65], [17, 3], [32, 64]], -50),
+    "equal_to_canvas": ((2, 96, 192), [[96, 192], [96, 192]], -50),
+    "one_pixel": ((1, 480, 640), [[1, 1]], -50),
+    "zero_tiles_beyond_tiny": ((2, 100, 300), [[1, 1], [5, 3]], -50),
+}
 
 
 @pytest.fixture()
@@ -23,9 +38,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _images(seed, b, h, w):
+def _images(seed, b, h, w, low=0):
     rng = np.random.default_rng(seed)
-    img = np.round(rng.uniform(0, 40, (b, h, w))).astype(np.float32)
+    img = np.round(rng.uniform(low, 40, (b, h, w))).astype(np.float32)
     for i in range(b):
         for y, x in zip(rng.integers(3, h - 6, 40), rng.integers(3, w - 6, 40)):
             img[i, y : y + 3, x : x + 3] += np.round(rng.uniform(80, 160))
@@ -63,3 +78,68 @@ def test_fast_kernel_rejects_bad_input(cuda):
         fmn(torch.zeros(1, 8, 8, device=cuda).transpose(1, 2))   # not contiguous
     with pytest.raises(ValueError):
         fmn(torch.zeros(1, 8, 8, device=cuda, dtype=torch.float64))
+
+
+def test_fast_wrapper_cpu_path_with_extents_is_plain_and_uncounted():
+    imgs = _images(2, 2, 48, 64, low=-50)
+    ext = torch.tensor([[48, 64], [20, 33]], dtype=torch.int32)
+    fmn = fmn_mod.fast_margin_nms
+    before = fmn.launches
+    assert torch.equal(fmn(imgs, ext), fmn_mod.fast_margin_nms_plain(imgs, ext))
+    assert fmn.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(EXTENT_CASES))
+def test_fast_kernel_with_extents_equals_plain(cuda, case):
+    shape, hw, low = EXTENT_CASES[case]
+    fmn = fmn_mod.fast_margin_nms
+    x = _images(3, *shape, low=low).to(cuda)
+    ext = None if hw is None else torch.tensor(hw, dtype=torch.int32, device=cuda)
+    before = fmn.launches
+    out = fmn(x, ext)
+    torch.cuda.synchronize()
+    assert fmn.launches == before + 1
+    assert torch.equal(out, fmn_mod.fast_margin_nms_plain(x, ext))
+    if hw is not None:
+        for b, (h, w) in enumerate(hw):
+            assert not out[b, h:].any() and not out[b, :, w:].any()
+
+
+@pytest.mark.cuda
+def test_fast_kernel_follows_extents_changed_in_place(cuda):
+    fmn = fmn_mod.fast_margin_nms
+    x = _images(4, 2, 70, 128, low=-50).to(cuda)
+    ext = torch.tensor([[70, 128], [70, 128]], dtype=torch.int32, device=cuda)
+    assert torch.equal(fmn(x, ext), fmn_mod.fast_margin_nms_plain(x, ext))
+    ext[1] = torch.tensor([9, 30], dtype=torch.int32)
+    assert torch.equal(fmn(x, ext), fmn_mod.fast_margin_nms_plain(x, ext))
+
+
+@pytest.mark.cuda
+def test_fast_kernel_never_falls_back_to_plain(cuda, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    x = _images(5, 2, 64, 128).to(cuda)
+    ext = torch.tensor([[64, 128], [30, 40]], dtype=torch.int32, device=cuda)
+    expect = (fmn_mod.fast_margin_nms_plain(x), fmn_mod.fast_margin_nms_plain(x, ext))
+    monkeypatch.setattr(fmn_mod, "fast_margin_nms_plain", refuse)
+    assert torch.equal(fmn_mod.fast_margin_nms(x), expect[0])
+    assert torch.equal(fmn_mod.fast_margin_nms(x, ext), expect[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["shape", "dtype", "device", "zero", "too_high", "too_wide"])
+def test_fast_kernel_rejects_bad_extents(cuda, bad):
+    x = torch.zeros(2, 40, 64, device=cuda)
+    ext = {
+        "shape": torch.tensor([[40, 64]], dtype=torch.int32, device=cuda),
+        "dtype": torch.tensor([[40, 64], [40, 64]], dtype=torch.int64, device=cuda),
+        "device": torch.tensor([[40, 64], [40, 64]], dtype=torch.int32),
+        "zero": torch.tensor([[40, 64], [0, 64]], dtype=torch.int32, device=cuda),
+        "too_high": torch.tensor([[41, 64], [40, 64]], dtype=torch.int32, device=cuda),
+        "too_wide": torch.tensor([[40, 64], [40, 65]], dtype=torch.int32, device=cuda),
+    }[bad]
+    with pytest.raises(ValueError):
+        fmn_mod.fast_margin_nms(x, ext)
