@@ -1,10 +1,11 @@
 """Move state between the JAX package and the port as numpy arrays.
 
 The JAX package keeps its state in NamedTuples of arrays (FrameFeatures,
-Keypoints, PoseObs, ...). The port has NamedTuples of the same names and
-fields, holding tensors. These helpers turn one into the other through
-numpy, so a test can feed both packages identical state; this module never
-imports jax (``np.asarray`` reads a jax array).
+Keypoints, PoseObs, MapArrays, ...). The port has NamedTuples of the same
+names and fields, holding tensors. These helpers turn one into the other
+through numpy, so a test can feed both packages identical state; this module
+never imports jax (``np.asarray`` reads a jax array). :func:`slam_map_from`
+carries a whole map across, device arrays and host mirrors.
 """
 
 from __future__ import annotations
@@ -50,6 +51,36 @@ def tree_from_numpy(cls, tree, device):
         else:
             out[name] = torch.from_numpy(np.array(v)).to(device)
     return cls(**out)
+
+
+_MAP_HOST_ARRAYS = ("kf_obs_np", "kf_frame_id", "kf_alive", "covis",
+                    "pt_obs_count", "pt_birth_kf", "pt_alive", "kf_parent",
+                    "slot_uid")
+_MAP_HOST_INTS = ("K", "M", "N", "V", "n_kfs", "n_pts", "version", "kf_uid_next")
+
+
+def slam_map_from(src, cfg, cam: Camera, device):
+    """The port's :class:`SlamMap` holding the same state as ``src``, a
+    JAX-package SlamMap (read duck-typed: its ``arrays`` NamedTuple and its
+    host mirrors). Device arrays go through :func:`tree_from_numpy`; host
+    mirrors are copied; cull-time poses become tensors."""
+    from .slam_map.map_state import MapArrays
+    from .slam_map.slam_map import SlamMap
+
+    m = SlamMap(cfg, cam, device)
+    m.arrays = tree_from_numpy(MapArrays, src.arrays, device)
+    for name in _MAP_HOST_INTS:
+        setattr(m, name, int(getattr(src, name)))
+    for name in _MAP_HOST_ARRAYS:
+        setattr(m, name, np.array(getattr(src, name)))
+
+    def tensor(x):
+        return torch.from_numpy(np.array(x, np.float32)).to(device)
+
+    m.uid_cull = {int(u): (int(p), tensor(T)) for u, (p, T) in src.uid_cull.items()}
+    m.loop_edges = [(int(i), int(j), np.array(T), float(s))
+                    for (i, j, T, s) in src.loop_edges]
+    return m
 
 
 def tree_to_numpy(tree) -> dict:

@@ -5,8 +5,13 @@ TrackWithMotionModel (src/Tracking.cc:1908) with UpdateLastFrame's temporal
 points (:1802): the last frame's depth-backed keypoints are projected with
 the constant-velocity prediction, matched into the current frame inside a
 window (a masked Hamming matrix), and the pose is refined by motion-only BA.
-The fused per-frame functions of the JAX module (``fused_*``) come with the
-map.
+
+The fused frame step (:func:`fused_frame_step`) chains ORB extraction, a
+single-pass motion-model track, the local-map track and the pose/velocity
+update, and returns everything the host's keyframe decision needs as one
+(3,) count vector. :func:`fused_frame_scan` runs W such steps over a chunk
+of frames against one fixed local-map view (the JAX package's ``lax.scan``
+is a Python loop here). ``RGBDOdometry`` is the map-free tracker.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from ..device import resolve_device
 from ..geometry import se3
 from ..geometry.camera import Camera, backproject, in_image, project
 from ..ops import hamming
+from ..slam_map.slam_map import LocalMapTrackResult, LocalView, track_local_map
 from ..solvers.pose_opt import PoseObs, optimize_pose
 from .features import FrameFeatures, ORBPipeline
 
@@ -114,6 +120,173 @@ def track_motion_model(
         num_inliers=opt.num_inliers,
         inlier=opt.inlier,
         match_idx=res.idx,
+    )
+
+
+class FusedStepResult(NamedTuple):
+    feats: FrameFeatures
+    lm: LocalMapTrackResult     # for keyframe insertion / stats
+    Tcw: torch.Tensor           # selected pose
+    velocity: torch.Tensor      # updated constant-velocity model
+    counts: torch.Tensor        # (2,) int32 [mm_inliers, lm_inliers]
+    sup: torch.Tensor           # (3,) int32 [mm_inliers, lm_inliers, n_close]:
+                                # the only per-frame device->host read; the
+                                # keyframe decision needs nothing else
+    sup_heavy: torch.Tensor     # (3N,) int32 [kp_point_id, kp_valid,
+                                # depth>0]: the insertion payload, read only
+                                # when the frame becomes a keyframe
+    stats_acc: torch.Tensor     # (V, 2) int32 accumulated [visible, found]
+                                # per local-view row, carried frame to frame
+                                # and applied to the map once per view
+
+
+def _pack_supervision(counts, lm, feats):
+    """-> ((3,) counts, (3N,) heavy payload), both int32."""
+    valid = feats.valid
+    close = valid & (feats.depth > 0)
+    sup = torch.cat([counts.to(torch.int32),
+                     torch.sum(close, dtype=torch.int32)[None]])
+    heavy = torch.cat([
+        lm.kp_point_id.to(torch.int32),
+        valid.to(torch.int32),
+        (feats.depth > 0).to(torch.int32),
+    ])
+    return sup, heavy
+
+
+def _accumulate_stats(stats_acc, lm) -> torch.Tensor:
+    """Fold this frame's [visible, found] row booleans into the carried
+    accumulator (None = cold start)."""
+    delta = torch.stack([lm.visible_ids >= 0, lm.found_ids >= 0], dim=-1).to(torch.int32)
+    return delta if stats_acc is None else stats_acc + delta
+
+
+def _frame_step_core(
+    pipe, image, depth, last, last_Tcw, velocity, view,
+    mm_radius, map_radius, min_lm, stats_acc,
+) -> FusedStepResult:
+    """Body shared by fused_frame_step and fused_frame_scan."""
+    T_pred = se3.orthonormalize(velocity @ last_Tcw)
+    kp, _, _, patches = pipe.detect_keypoints(image)
+    feats = pipe.describe(kp, patches, depth)
+    # single pass: the local-map track that follows re-matches from this
+    # pose (the reference's TrackLocalMap after TrackWithMotionModel,
+    # src/Tracking.cc:688)
+    mm = track_motion_model(
+        pipe.cam, feats, last, last_Tcw, T_pred, mm_radius, two_pass=False
+    )
+    ok_mm = mm.num_inliers >= 10
+    T0 = torch.where(ok_mm, mm.Tcw, last_Tcw)
+    # widen the map window when the motion model failed (retry ladder)
+    lm = track_local_map(
+        pipe.cam, feats, view, T0, torch.where(ok_mm, map_radius, map_radius * 3.0)
+    )
+    ok_lm = lm.num_inliers >= min_lm
+    Tcw = torch.where(ok_lm, lm.Tcw, T0)
+    tracked = ok_lm | ok_mm
+    eye = torch.eye(4, dtype=Tcw.dtype, device=Tcw.device)
+    vel_new = torch.where(
+        tracked, se3.orthonormalize(Tcw @ se3.inv_T(last_Tcw)), eye)
+    Tcw = torch.where(tracked, Tcw, last_Tcw)
+    counts = torch.stack([mm.num_inliers, lm.num_inliers])
+    sup, sup_heavy = _pack_supervision(counts, lm, feats)
+    return FusedStepResult(
+        feats=feats, lm=lm, Tcw=Tcw, velocity=vel_new, counts=counts,
+        sup=sup, sup_heavy=sup_heavy,
+        stats_acc=_accumulate_stats(stats_acc, lm),
+    )
+
+
+def fused_frame_step(
+    pipe: ORBPipeline,
+    image: torch.Tensor,
+    depth: torch.Tensor,
+    last: FrameFeatures,
+    last_Tcw: torch.Tensor,
+    velocity: torch.Tensor,
+    view: LocalView,
+    mm_radius: torch.Tensor,
+    map_radius: torch.Tensor,
+    min_lm: int = 30,
+    stats_acc: Optional[torch.Tensor] = None,
+) -> FusedStepResult:
+    """One frame: ORB extraction + motion-model tracking + local-map
+    tracking + the pose/velocity update, with no host read. The device
+    state chain (pose, velocity, features) holds its own LOST fallback, so
+    the host reads only ``sup`` to supervise. (The JAX step's
+    ``suppress_mask`` comes with the dynamic stage, ROADMAP queue 1 item 6.)"""
+    return _frame_step_core(
+        pipe, image, depth, last, last_Tcw, velocity, view,
+        mm_radius, map_radius, min_lm, stats_acc,
+    )
+
+
+class ChunkYs(NamedTuple):
+    """Per-frame outputs of a chunk, stacked along a leading W axis."""
+    Tcw: torch.Tensor           # (W, 4, 4)
+    sup: torch.Tensor           # (W, 3) per-frame count rows: the chunk's
+                                # one host read
+    sup_heavy: torch.Tensor     # (W, 3N) insertion payload rows, read per
+                                # keyframe
+    feats: FrameFeatures        # (W, ...) stacked
+
+
+class FusedChunkResult(NamedTuple):
+    feats: FrameFeatures        # final frame's features
+    Tcw: torch.Tensor           # final pose
+    velocity: torch.Tensor      # final velocity
+    stats_acc: torch.Tensor     # (V, 2) accumulated [visible, found]
+    ys: ChunkYs
+
+
+def stack_tree(trees):
+    """Stack a list of (nested) NamedTuples of tensors along a new axis 0."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(trees)
+    return type(first)(*(stack_tree(list(xs)) for xs in zip(*trees)))
+
+
+def index_tree(tree, j: int):
+    """Row j of every leaf of a stacked (nested) NamedTuple (views)."""
+    if isinstance(tree, torch.Tensor):
+        return tree[j]
+    return type(tree)(*(index_tree(x, j) for x in tree))
+
+
+def fused_frame_scan(
+    pipe: ORBPipeline,
+    images: torch.Tensor,       # (W, H, Wd) chunk of frames
+    depths: torch.Tensor,       # (W, H, Wd)
+    last: FrameFeatures,
+    last_Tcw: torch.Tensor,
+    velocity: torch.Tensor,
+    view: LocalView,            # fixed across the chunk
+    mm_radius: torch.Tensor,
+    map_radius: torch.Tensor,
+    min_lm: int = 30,
+    stats_acc: Optional[torch.Tensor] = None,
+) -> FusedChunkResult:
+    """W fused frame steps against one local-map view, with no host read:
+    the caller resolves the chunk's keyframe decisions from its (W, 3)
+    ``ys.sup`` after the chunk (the reference's LocalMapping inserts
+    keyframes from its consumer thread with comparable latency,
+    src/LocalMapping.cc:73)."""
+    V = view.ids.shape[0]
+    acc = (torch.zeros((V, 2), dtype=torch.int32, device=last_Tcw.device)
+           if stats_acc is None else stats_acc)
+    feats, Tcw, vel = last, last_Tcw, velocity
+    rows = []
+    for w in range(images.shape[0]):
+        res = _frame_step_core(
+            pipe, images[w], depths[w], feats, Tcw, vel, view,
+            mm_radius, map_radius, min_lm, acc,
+        )
+        rows.append(ChunkYs(Tcw=res.Tcw, sup=res.sup,
+                            sup_heavy=res.sup_heavy, feats=res.feats))
+        feats, Tcw, vel, acc = res.feats, res.Tcw, res.velocity, res.stats_acc
+    return FusedChunkResult(
+        feats=feats, Tcw=Tcw, velocity=vel, stats_acc=acc, ys=stack_tree(rows)
     )
 
 

@@ -1,0 +1,618 @@
+"""System facade: the public API (port of system.py, RGB-D without dynamics).
+
+Mirrors the reference's System class (src/System.cc:38-645: construction,
+TrackRGBD, Reset, Shutdown, SaveTrajectoryTUM/KITTI) and the Tracking state
+machine (src/Tracking.cc:467). Tracking is the caller's loop of fused frame
+steps; local mapping (triangulation, fusion, culling, local BA) runs at
+keyframe rate on the same thread.
+
+Host reads. The JAX package hides its device->host round trips behind a
+reader thread and an async fetcher (``_SupervisionReader``,
+``_AsyncFetcher``, ``dispatch_window``); this port takes the same decisions
+synchronously:
+
+* per frame (``track_rgbd``): the frame's (3,) supervision vector is read
+  right after its step, and its keyframe decision and any maintenance run
+  before the next frame -- the JAX package's ``deterministic=True``
+  behaviour;
+* per chunk (``track_rgbd_chunk``): the local-map view is held fixed for
+  the W frames and the chunk's (W, 3) rows are resolved after the chunk.
+
+On the fast path that one small read per frame or chunk is the only sync;
+the (3N,) insertion payload is read only when a keyframe is inserted, and
+keyframe maintenance reads one small table per step.
+
+Not ported yet, and each raises ``NotImplementedError`` naming the ROADMAP
+item (queue 1) that brings it: dynamics (``use_dynamics=True``, 6),
+segmentation masks (7), RGB input for the CIELAB SLIC (6), loop closing /
+relocalization / a vocabulary / global refinement (9), stereo and
+monocular tracking (10), map save/load (11). Without a loop closer, a LOST
+frame holds the last pose, as the JAX package does without one.
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .config import SystemConfig
+from .device import resolve_device
+from .frontend.features import FrameFeatures, ORBPipeline
+from .frontend.tracking import (
+    fused_frame_scan,
+    fused_frame_step,
+    index_tree,
+    track_motion_model,
+)
+from .geometry import se3
+from .io import trajectory
+from .slam_map.slam_map import SlamMap, track_local_map
+
+
+class TrackingState(enum.Enum):
+    NOT_INITIALIZED = 0
+    OK = 1
+    LOST = 2
+
+
+def _not_ported(what: str, item: int):
+    return NotImplementedError(
+        f"amos_slam_tpu_torch: {what} is not ported yet (ROADMAP queue 1 item {item})")
+
+
+class _ChunkRow(NamedTuple):
+    """Row j of a chunk's stacked outputs (views, no copy)."""
+    feats: FrameFeatures
+    Tcw: torch.Tensor
+    sup_heavy: torch.Tensor
+
+
+class System:
+    """The SLAM system facade for RGB-D input.
+
+        slam = System(SystemConfig(use_dynamics=False))
+        for gray, depth, t in frames:
+            Tcw = slam.track_rgbd(gray, depth, t)
+        slam.save_trajectory_tum("CameraTrajectory.txt")
+
+    ``device`` defaults to the CUDA card and raises without one; pass
+    ``device="cpu"`` for the plain path.
+    """
+
+    def __init__(self, cfg: Optional[SystemConfig] = None, device=None,
+                 vocabulary=None):
+        self.cfg = cfg or SystemConfig()
+        if self.cfg.use_dynamics:
+            raise _not_ported("dynamic-object rejection (use_dynamics=True)", 6)
+        if vocabulary is not None:
+            raise _not_ported("place recognition (vocabulary)", 9)
+        if self.cfg.sensor != "rgbd":
+            raise _not_ported(f"the {self.cfg.sensor} sensor", 10)
+        self.device = resolve_device(device)
+        self.pipeline = ORBPipeline(self.cfg.orb, self.cfg.camera, self.device)
+        self.cam = self.pipeline.cam
+        self.map = SlamMap(self.cfg, self.cam, self.device)
+        self.loop = None   # loop closing: ROADMAP queue 1 item 9
+
+        self.state = TrackingState.NOT_INITIALIZED
+        self.last_feats: Optional[FrameFeatures] = None
+        self._eye = torch.eye(4, dtype=torch.float32, device=self.device)
+        self.last_Tcw = self._eye
+        self.velocity = self._eye
+        self.ref_kf = 0
+        self.last_kf_frame = -999
+        self.last_kf_inliers = 0
+        self.frame_id = -1
+
+        self.timestamps = []
+        self.poses_cw = []      # (4,4) per frame or (W,4,4) per chunk, on device
+        # one entry per poses_cw entry: index into self._ref_epochs (the
+        # (ref-keyframe uid, ref pose at track time) snapshot the frame was
+        # tracked against), or -1 before initialization; corrected_poses_np
+        # replays map corrections through it (the reference's mlpReferences
+        # + track-time Tcr, src/Tracking.cc:806-815)
+        self.frame_refs = []
+        self._ref_epochs = []
+        self._epoch_key = None
+        self.stats = []
+        # localization-only mode (reference ActivateLocalizationMode):
+        # tracking continues, the map is frozen
+        self.localization_only = False
+
+        tc = self.cfg.tracking
+        f32 = dict(dtype=torch.float32, device=self.device)
+        self._r_mm = torch.tensor(tc.match_radius_motion, **f32)
+        self._r_map = torch.tensor(tc.match_radius_map * 2.0, **f32)
+        # landmark visible/found counters accumulate inside the fused frame
+        # step ((V, 2) per local-view row) and apply to the map in one
+        # scatter when the view changes or a keyframe is inserted
+        self._stats_acc = None
+        self._acc_ids = None
+        # auto-reset when tracking is lost soon after initialization with a
+        # tiny map (reference src/Tracking.cc:785-793)
+        self._pending_reset = False
+
+    def _upload(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device, torch.float32)
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device)
+
+    def _maybe_auto_reset(self):
+        if self._pending_reset:
+            self._pending_reset = False
+            self.reset()
+
+    def _on_lost(self):
+        self.state = TrackingState.LOST
+        if self.map.n_kfs <= 5 and not self.localization_only:
+            self._pending_reset = True
+
+    def _flush_stats(self):
+        """Apply the accumulated [visible, found] counters to the map (one
+        scatter), then reset the accumulator."""
+        if self._stats_acc is not None and self._acc_ids is not None:
+            self.map.apply_stats_rows(self._acc_ids, self._stats_acc)
+        self._stats_acc = None
+        self._acc_ids = None
+
+    def _view(self):
+        """The current local-map view; the counters gathered against an
+        older view are applied to its ids first."""
+        view = self.map.local_view(self.ref_kf)
+        if self._acc_ids is not None and view.ids is not self._acc_ids:
+            self._flush_stats()
+        return view
+
+    # ------------------------------------------------------------------ api
+    def track_rgbd(self, gray, depth, timestamp: float, seg_mask=None, rgb=None):
+        """One (H, W) gray image [0, 255] and depth map [m] in, the camera
+        pose Tcw (4, 4) on the device out (reference System::TrackRGBD)."""
+        if seg_mask is not None:
+            raise _not_ported("the stage-one segmentation mask", 7)
+        if rgb is not None:
+            raise _not_ported("RGB input (CIELAB SLIC of the dynamic stage)", 6)
+        self._maybe_auto_reset()
+        self.frame_id += 1
+        g, d = self._upload(gray), self._upload(depth)
+
+        if self.state is TrackingState.OK:
+            # fast path: one fused frame step, one (3,) host read
+            view = self._view()
+            res = fused_frame_step(
+                self.pipeline, g, d, self.last_feats, self.last_Tcw,
+                self.velocity, view, self._r_mm, self._r_map,
+                min_lm=self.cfg.tracking.min_inliers_local_map,
+                stats_acc=self._stats_acc,
+            )
+            self._stats_acc = res.stats_acc
+            self._acc_ids = view.ids
+            self.last_feats = res.feats
+            self.last_Tcw = res.Tcw
+            self.velocity = res.velocity
+            self.timestamps.append(timestamp)
+            self.poses_cw.append(res.Tcw)
+            self.frame_refs.append(self._ref_epoch())
+            self._resolve_step(res, self.frame_id, res.sup.cpu().numpy())
+            return res.Tcw
+
+        feats = self.pipeline.extract(g, depth_image=d)
+        if self.state is TrackingState.NOT_INITIALIZED:
+            Tcw = self._initialize(feats)
+        else:
+            Tcw = self._track(feats)
+        return self._finish_frame(feats, Tcw, timestamp)
+
+    def track_rgbd_chunk(self, grays, depths, timestamps, seg_masks=None, rgbs=None):
+        """Throughput mode: W frames per call.
+
+        grays/depths: (W, H, Wd) stacked frames; timestamps: length W.
+        Returns the (W, 4, 4) poses. The W fused frame steps run against
+        one local-map view and the chunk's (W, 3) supervision rows are read
+        once, after it: keyframe decisions resolve at chunk granularity.
+        Falls back to the per-frame path while not initialized, while LOST,
+        and with ``cfg.deterministic``."""
+        if seg_masks is not None:
+            raise _not_ported("the stage-one segmentation mask", 7)
+        if rgbs is not None:
+            raise _not_ported("RGB input (CIELAB SLIC of the dynamic stage)", 6)
+        W = len(grays)
+        if self.cfg.deterministic or self.state is not TrackingState.OK:
+            return torch.stack([
+                self.track_rgbd(grays[j], depths[j], timestamps[j]) for j in range(W)
+            ])
+
+        view = self._view()
+        fid0 = self.frame_id + 1
+        self.frame_id += W
+        res = fused_frame_scan(
+            self.pipeline, self._upload(grays), self._upload(depths),
+            self.last_feats, self.last_Tcw, self.velocity, view,
+            self._r_mm, self._r_map,
+            min_lm=self.cfg.tracking.min_inliers_local_map,
+            stats_acc=self._stats_acc,
+        )
+        self._stats_acc = res.stats_acc
+        self._acc_ids = view.ids
+        self.last_feats = res.feats
+        self.last_Tcw = res.Tcw
+        self.velocity = res.velocity
+        self.timestamps.extend(timestamps)
+        self.poses_cw.append(res.ys.Tcw)
+        self.frame_refs.append(self._ref_epoch())
+        sup = res.ys.sup.cpu().numpy()
+        for j in range(W):
+            row = _ChunkRow(feats=index_tree(res.ys.feats, j), Tcw=res.ys.Tcw[j],
+                            sup_heavy=res.ys.sup_heavy[j])
+            self._resolve_step(row, fid0 + j, sup[j])
+        return res.ys.Tcw
+
+    def track_stereo(self, left, right, timestamp: float):
+        raise _not_ported("stereo tracking", 10)
+
+    def track_monocular(self, gray, timestamp: float):
+        raise _not_ported("monocular tracking", 10)
+
+    # ---------------------------------------------------- trajectory export
+    def _ref_uid(self) -> int:
+        """uid of the current reference keyframe (-1 before initialization)."""
+        if self.map.n_kfs == 0:
+            return -1
+        return int(self.map.slot_uid[self.ref_kf])
+
+    def _ref_epoch(self) -> int:
+        """Index into self._ref_epochs for the current (ref uid, ref pose)
+        pair; -1 before initialization.
+
+        The reference composes each frame's relative pose Tcr against its
+        reference keyframe's pose as of the frame's track time
+        (src/Tracking.cc:806-815), so each frame records an epoch: a (uid,
+        (4,4) pose) snapshot taken the first time a frame is tracked after
+        any map mutation or reference change. The snapshot is a clone:
+        ``kf_pose[ref_kf]`` alone would be a view, and local BA writes
+        ``kf_pose`` in place."""
+        if self.map.n_kfs == 0:
+            return -1
+        key = (id(self.map), self.map.version, self.ref_kf)
+        if key != self._epoch_key:
+            self._epoch_key = key
+            self._ref_epochs.append((
+                self._ref_uid(), self.map.arrays.kf_pose[self.ref_kf].clone()))
+        return len(self._ref_epochs) - 1
+
+    def _frame_poses_refs(self):
+        """(per-frame raw Tcw float64 list, per-frame epoch index list);
+        chunk entries ((W, 4, 4) stacks) expand in order. One host read."""
+        if not self.poses_cw:
+            return [], []
+        flat = torch.cat([T.reshape(-1, 4, 4) for T in self.poses_cw])
+        flat = flat.cpu().numpy().astype(np.float64)
+        out, refs, i = [], [], 0
+        for T, u in zip(self.poses_cw, self.frame_refs):
+            n = T.reshape(-1, 4, 4).shape[0]
+            out.extend(flat[i: i + n])
+            refs.extend([u] * n)
+            i += n
+        return out, refs
+
+    def poses_np(self):
+        """All frame poses as recorded at track time (no corrections; see
+        corrected_poses_np for the replayed export)."""
+        return self._frame_poses_refs()[0]
+
+    def corrected_poses_np(self):
+        """Full-frame trajectory with map corrections applied retroactively:
+        each frame is recomposed as ``Tcw = Tcr @ Tcw_ref(current)`` with
+        ``Tcr = Tcw(track) @ inv(Tcw_ref(track))`` -- the reference's
+        SaveTrajectoryTUM replay (src/System.cc:444-516). A culled reference
+        keyframe resolves through its cull-time spanning-tree relative pose
+        (KeyFrame::mTcp, src/System.cc:468-476). Frames whose reference
+        cannot be resolved (before initialization, or before a reset) keep
+        their raw pose."""
+        raw, refs = self._frame_poses_refs()
+        m = self.map
+        cull_keys = list(m.uid_cull)
+        dev = ([m.arrays.kf_pose] + [T for (_, T) in self._ref_epochs]
+               + [m.uid_cull[u][1] for u in cull_keys])
+        host = torch.cat([T.reshape(-1, 4, 4).to(self.device) for T in dev])
+        host = host.cpu().numpy().astype(np.float64)
+        K = m.arrays.kf_pose.shape[0]
+        kf_now = host[:K]
+        n_ep = len(self._ref_epochs)
+        epochs = [(u, host[K + i]) for i, (u, _) in enumerate(self._ref_epochs)]
+        cull = {u: (m.uid_cull[u][0], host[K + n_ep + i]) for i, u in enumerate(cull_keys)}
+        uid2slot = {
+            int(m.slot_uid[s]): s
+            for s in range(m.n_kfs)
+            if m.kf_alive[s] and m.slot_uid[s] >= 0
+        }
+        out = []
+        for T_raw, e in zip(raw, refs):
+            if e < 0:
+                out.append(T_raw)
+                continue
+            u, T_ref = epochs[e]
+            Tcr = T_raw @ trajectory._twc(T_ref)   # cam <- ref at track time
+            ok = True
+            while u not in uid2slot:
+                nxt = cull.get(u)
+                if nxt is None:   # chain broken (a reset dropped the map)
+                    ok = False
+                    break
+                pu, Tcp = nxt
+                Tcr = Tcr @ Tcp
+                u = pu
+            out.append(Tcr @ kf_now[uid2slot[u]] if ok else T_raw)
+        return out
+
+    def save_trajectory_tum(self, path: str):
+        """Full-frame TUM export with corrections replayed against current
+        keyframe poses (reference SaveTrajectoryTUM, src/System.cc:429)."""
+        trajectory.save_tum(path, self.timestamps, self.corrected_poses_np())
+
+    def save_trajectory_kitti(self, path: str):
+        trajectory.save_kitti(path, self.corrected_poses_np())
+
+    def save_keyframe_trajectory_tum(self, path: str):
+        """Keyframe poses only (SaveKeyFrameTrajectoryTUM, src/System.cc:484)."""
+        m = self.map
+        kf_poses = m.arrays.kf_pose[: m.n_kfs].cpu().numpy().astype(np.float64)
+        poses, stamps = [], []
+        for k in range(m.n_kfs):
+            if not m.kf_alive[k]:
+                continue
+            fid = int(m.kf_frame_id[k])
+            if 0 <= fid < len(self.timestamps):
+                stamps.append(self.timestamps[fid])
+                poses.append(kf_poses[k])
+        trajectory.save_tum(path, stamps, poses)
+
+    def save_map(self, path: str):
+        raise _not_ported("map checkpoints (save_map)", 11)
+
+    def load_map(self, path: str):
+        raise _not_ported("map checkpoints (load_map)", 11)
+
+    def global_refine(self):
+        raise _not_ported("global bundle adjustment", 9)
+
+    def activate_localization_mode(self):
+        """Track against the existing map without extending it (reference
+        System::ActivateLocalizationMode)."""
+        self._flush_stats()
+        self.localization_only = True
+
+    def deactivate_localization_mode(self):
+        self._flush_stats()
+        self.localization_only = False
+
+    def reset(self):
+        """Drop the map and tracking state (reference System::Reset)."""
+        self._flush_stats()
+        uid_next = self.map.kf_uid_next
+        self.map = SlamMap(self.cfg, self.cam, self.device)
+        # keyframe uids stay unique across resets, so frame_refs recorded
+        # before the reset never alias new keyframes (they fall back to raw
+        # poses in corrected_poses_np)
+        self.map.kf_uid_next = uid_next
+        self.state = TrackingState.NOT_INITIALIZED
+        self.last_feats = None
+        self.last_Tcw = self._eye
+        self.velocity = self._eye
+        self.ref_kf = 0
+        self.last_kf_frame = -999
+        self.last_kf_inliers = 0
+        self._stats_acc = None
+        self._acc_ids = None
+        self._epoch_key = None
+
+    def shutdown(self):
+        """Apply pending counters and wait for the device."""
+        self._flush_stats()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ---------------------------------------------------- host supervision
+    def _resolve_step(self, res, frame_id: int, sup: np.ndarray):
+        """Host supervision of one fused-path frame: state machine,
+        keyframe decision. ``sup`` is the frame's (3,) count vector
+        [mm_inliers, lm_inliers, n_close]."""
+        tcfg = self.cfg.tracking
+        n_mm, n_lm, n_close = int(sup[0]), int(sup[1]), int(sup[2])
+        made_kf = False
+        if n_lm >= tcfg.min_inliers_local_map:
+            self.state = TrackingState.OK
+            self._pending_reset = False   # recovery cancels a stale reset
+            need_kf = (
+                (frame_id - self.last_kf_frame >= 30)
+                or (
+                    frame_id - self.last_kf_frame >= 3
+                    and n_lm < 0.75 * max(self.last_kf_inliers, 1)
+                )
+                or n_lm < 50
+            )
+            if need_kf and not self.localization_only:
+                self._insert_kf(res, frame_id, n_lm, matched=True)
+                made_kf = True
+        elif n_mm >= 10:
+            self.state = TrackingState.OK   # pure odometry frame
+            self._pending_reset = False
+            # Close-point-starved: the local map fell behind the camera;
+            # re-seed it with a keyframe of this frame's close-depth
+            # keypoints (all-new landmarks), the reference's insert-on-few-
+            # close-points rule (src/Tracking.cc:2064-2208)
+            if (
+                not self.localization_only
+                and frame_id - self.last_kf_frame >= 3
+                and n_close >= 100
+            ):
+                self._insert_kf(res, frame_id, max(n_mm, 1), matched=False)
+                made_kf = True
+        else:
+            # the device chain already held the pose; the next frame takes
+            # the slow path
+            self._on_lost()
+        self.stats.append({"matches": n_mm, "inliers": n_lm, "kf": made_kf})
+
+    def _insert_kf(self, res, frame_id: int, kf_inliers: int, matched: bool):
+        """Insert a keyframe from a fused-path frame and run its
+        maintenance. ``matched=False`` is the odometry re-seed path (all
+        landmarks new). The (3N,) payload is read here, and only here."""
+        N = self.cfg.orb.max_kpts
+        self.last_kf_frame = frame_id
+        self.last_kf_inliers = kf_inliers
+        self._maybe_compact()
+        self._flush_stats()   # cull decisions see fresh counters
+        heavy = res.sup_heavy.cpu().numpy()
+        if matched:
+            kp_point = heavy[:N].astype(np.int64)
+        else:
+            kp_point = np.full(N, -1, np.int64)
+        valid = heavy[N: 2 * N] > 0
+        close = heavy[2 * N:] > 0
+        self.ref_kf = self.map.insert_keyframe(
+            res.feats, res.Tcw, kp_point, frame_id, valid_close=(valid, close))
+        self._keyframe_maintenance(self.ref_kf)
+
+    def _maybe_compact(self):
+        """Reclaim culled keyframe slots when the map is near capacity
+        (SlamMap.compact_keyframes); grow instead when too few are dead."""
+        if self.map.n_kfs < self.map.K - 2:
+            return
+        # hysteresis: compacting for a handful of slots would thrash
+        dead = self.map.n_kfs - int(self.map.kf_alive[: self.map.n_kfs].sum())
+        if dead < max(4, self.map.K // 16):
+            self.map.grow_keyframes()
+            return
+        lut = self.map.compact_keyframes()
+        if lut[self.ref_kf] >= 0:
+            self.ref_kf = int(lut[self.ref_kf])
+        else:
+            self.ref_kf = self.map.n_kfs - 1
+
+    # ------------------------------------------------- keyframe maintenance
+    def _keyframe_maintenance(self, slot: int):
+        """Post-insertion maintenance for keyframe ``slot``: triangulation,
+        then (on a cadence) fusion + culling + landmark refresh, then local
+        BA -- the reference's LocalMapping order (CreateNewMapPoints ->
+        SearchInNeighbors -> local BA -> KeyFrameCulling,
+        src/LocalMapping.cc:73)."""
+        disp = self.map.create_new_points_dispatch(slot)
+        if disp is not None:
+            self.map.create_new_points_resolve(slot, disp, disp["packed"].cpu().numpy())
+        self._post_triangulation(slot)
+
+    def _post_triangulation(self, slot: int):
+        mcfg = self.cfg.map
+        if slot % mcfg.maintenance_cadence == 1:
+            # fusion and culling act on slowly accumulating redundancy:
+            # every maintenance_cadence-th keyframe. Their two tables come
+            # home in one read.
+            fdisp = self.map.fuse_neighbors_dispatch(slot)
+            stats = self.map.cull_points_dispatch()
+            parts = [stats.reshape(-1)]
+            if fdisp is not None:
+                parts.append(fdisp["packed"].reshape(-1))
+            host = torch.cat(parts).cpu().numpy()
+            n = stats.numel()
+            if fdisp is not None:
+                packed = host[n:].reshape(fdisp["packed"].shape)
+                self.map.fuse_neighbors_resolve(slot, fdisp, packed)
+            self.map.cull_points_resolve(host[:n].reshape(stats.shape))
+            self.map.cull_keyframes(slot)
+            self.map.refresh_landmarks(slot)
+        # BA last, so it optimizes the post-fusion observation set
+        if slot % mcfg.ba_cadence == 0 or slot < 4:
+            self.map.run_local_ba(slot)
+
+    def _finish_frame(self, feats, Tcw, timestamp):
+        self.last_feats = feats
+        self.last_Tcw = Tcw
+        self.timestamps.append(timestamp)
+        self.poses_cw.append(Tcw)
+        self.frame_refs.append(self._ref_epoch())
+        return Tcw
+
+    # ------------------------------------------------------------- internals
+    def _initialize(self, feats: FrameFeatures) -> torch.Tensor:
+        """StereoInitialization (src/Tracking.cc:1343): the first frame with
+        enough depth-valid keypoints becomes KF 0 + the initial landmarks."""
+        n_depth = int(torch.sum(feats.valid & (feats.depth > 0)))
+        if n_depth < 100:
+            self.stats.append({"matches": 0, "inliers": 0, "kf": False})
+            return self._eye
+        kp_point = np.full(self.cfg.orb.max_kpts, -1, np.int64)
+        self.ref_kf = self.map.insert_keyframe(feats, self._eye, kp_point, self.frame_id)
+        self.last_kf_frame = self.frame_id
+        self.last_kf_inliers = n_depth
+        self.state = TrackingState.OK
+        self.stats.append({"matches": n_depth, "inliers": n_depth, "kf": True})
+        return self._eye
+
+    def _track(self, feats: FrameFeatures) -> torch.Tensor:
+        """The slow path (after LOST): two-pass motion model, then the local
+        map from its pose, or from the last pose if it failed."""
+        tcfg = self.cfg.tracking
+        T_pred = self.velocity @ self.last_Tcw
+        view = self._view()
+        mm = track_motion_model(
+            self.cam, feats, self.last_feats, self.last_Tcw, T_pred, self._r_mm)
+        n_mm = int(mm.num_inliers)
+        # a failed motion model means the constant-velocity prediction is
+        # wrong: start from the last pose (TrackReferenceKeyFrame,
+        # src/Tracking.cc:1736)
+        T0 = mm.Tcw if n_mm >= 10 else self.last_Tcw
+        map_radius = tcfg.match_radius_map * (2.0 if n_mm >= 10 else 6.0)
+        lm = track_local_map(
+            self.cam, feats, view, T0,
+            torch.tensor(map_radius, dtype=torch.float32, device=self.device))
+        mm_Tcw = T0 if n_mm >= 10 else None
+        return self._post_track(feats, n_mm, mm_Tcw, lm)
+
+    def _post_track(self, feats, n_mm, mm_Tcw, lm) -> torch.Tensor:
+        """Decision tail of the slow path."""
+        tcfg = self.cfg.tracking
+        n_lm = int(lm.num_inliers)
+        kp_point = None   # read lazily
+        if n_lm >= tcfg.min_inliers_local_map:
+            Tcw = lm.Tcw
+            self.state = TrackingState.OK
+            self.map.bump_stats(lm.visible_ids, lm.found_ids)
+        elif n_mm >= 10 and mm_Tcw is not None:
+            Tcw = mm_Tcw
+            kp_point = np.full(self.cfg.orb.max_kpts, -1, np.int64)
+            self.state = TrackingState.OK
+        else:
+            # LOST: without a loop closer there is no relocalization
+            # (Tracking::Relocalization, src/Tracking.cc:2591); hold the pose
+            self._on_lost()
+            self.velocity = self._eye
+            self.stats.append({"matches": n_mm, "inliers": 0, "kf": False})
+            return self.last_Tcw
+
+        self.velocity = se3.orthonormalize(Tcw @ se3.inv_T(self.last_Tcw))
+
+        # keyframe decision (NeedNewKeyFrame, src/Tracking.cc:2064)
+        need_kf = self.state is TrackingState.OK and (
+            (self.frame_id - self.last_kf_frame >= 30)
+            or (
+                self.frame_id - self.last_kf_frame >= 3
+                and n_lm < 0.75 * max(self.last_kf_inliers, 1)
+            )
+            or n_lm < 50
+        )
+        made_kf = False
+        if need_kf and n_lm >= tcfg.min_inliers_local_map and not self.localization_only:
+            self._maybe_compact()
+            if kp_point is None:
+                kp_point = lm.kp_point_id.cpu().numpy().astype(np.int64)
+            self.ref_kf = self.map.insert_keyframe(feats, Tcw, kp_point, self.frame_id)
+            self.last_kf_frame = self.frame_id
+            self.last_kf_inliers = n_lm
+            self._keyframe_maintenance(self.ref_kf)
+            made_kf = True
+
+        self.stats.append({"matches": n_mm, "inliers": n_lm, "kf": made_kf})
+        return Tcw

@@ -1,0 +1,103 @@
+"""Time System's per-frame and chunk paths against each other on one card.
+
+    python3 -m amos_slam_tpu_torch.tools.time_system [--frames 256] [--w 8]
+
+One ``System(SystemConfig(use_dynamics=False))`` at the 640x480 defaults
+tracks ``orbit_trajectory(frames, radius=0.1, advance=frames/768)`` in the
+synthetic room ``default_room(seed=1)``, grey rounded to integers and all
+frames staged on the card first (as ``chip_smoke.py``'s system phase). The
+first 2W frames go through ``track_rgbd``; the rest in blocks of 2W frames,
+each W frames through ``track_rgbd`` (each call timed) and W frames through
+one ``track_rgbd_chunk`` call, the path that goes first alternating from
+block to block, so both paths see the same map and the same host at nearly
+the same time. Times are host clock ending in a device sync. Frames of a
+block that inserts a keyframe are reported apart. Prints one JSON line with
+each path's median ms per frame over the blocks without a keyframe, every
+block's ms per frame, the card's name and power limit. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import time
+
+import numpy as np
+import torch
+
+from ..config import SystemConfig
+from ..io import evaluate, synthetic
+from ..ops.kernels import timing
+from ..system import System
+
+
+def staged_frames(n: int, device):
+    """(gray, depth) stacks (n, 480, 640) on ``device`` and the ground-truth
+    poses of the bench's motion."""
+    planes = synthetic.default_room(seed=1)
+    poses = synthetic.orbit_trajectory(n, radius=0.1, advance=n / 768)
+    gray, depth = [], []
+    for T in poses:
+        g, d = synthetic.render(planes, T)
+        gray.append(np.clip(g, 0, 255).astype(np.uint8).astype(np.float32))
+        depth.append(d.astype(np.float32))
+    return (torch.from_numpy(np.stack(gray)).to(device),
+            torch.from_numpy(np.stack(depth)).to(device), poses)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--frames", type=int, default=256)
+    ap.add_argument("--w", type=int, default=8, help="chunk width")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("time_system: no CUDA device available")
+    W = args.w
+    g, d, poses = staged_frames(args.frames, torch.device("cuda"))
+    stamps = [i / 30.0 for i in range(args.frames)]
+    slam = System(SystemConfig(use_dynamics=False))
+
+    def per_frame(a: int) -> float:
+        t = time.perf_counter()
+        for i in range(a, a + W):
+            slam.track_rgbd(g[i], d[i], stamps[i])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / W
+
+    def chunk(a: int) -> float:
+        t = time.perf_counter()
+        slam.track_rgbd_chunk(g[a: a + W], d[a: a + W], stamps[a: a + W])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / W
+
+    for a in range(0, 2 * W, W):
+        per_frame(a)
+    blocks = {"track_rgbd": [], "track_rgbd_chunk": []}
+    for k, a in enumerate(range(2 * W, args.frames - 2 * W + 1, 2 * W)):
+        order = (("track_rgbd", per_frame), ("track_rgbd_chunk", chunk))
+        for j, (name, fn) in enumerate(order if k % 2 == 0 else order[::-1]):
+            start = a + j * W
+            ms = fn(start)
+            kf = any(s["kf"] for s in slam.stats[start: start + W])
+            blocks[name].append({"first_frame": start, "ms_per_frame": ms, "keyframe": kf})
+    est = np.asarray(slam.corrected_poses_np())
+    gt = np.asarray(poses[: len(est)])
+    out = {
+        "tool": "time_system", "frames": len(est), "w": W,
+        "ate_m": evaluate.ate_rmse(evaluate.positions_from_cw(est),
+                                   evaluate.positions_from_cw(gt)),
+        "keyframes": slam.map.n_kfs, "state": slam.state.name,
+        "keyframe_frames": [int(f) for f in slam.map.kf_frame_id[: slam.map.n_kfs]],
+        "card": timing.smi("name,power.limit"),
+    }
+    for name, rows in blocks.items():
+        clean = [r["ms_per_frame"] for r in rows if not r["keyframe"]]
+        out[name] = {"median_ms_per_frame_no_keyframe": statistics.median(clean),
+                     "blocks": rows}
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

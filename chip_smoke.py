@@ -21,6 +21,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 with the same gates (inliers > 50, ATE < 2 cm, RPE-t < 1 cm)
                 and one FAST kernel launch per frame.
   4. profile -- torch.profiler over 5 frames: device time by op.
+  5. system  -- System(SystemConfig(use_dynamics=False)) at the defaults
+                (640x480, 1000 features, max_keyframes 512, max_points
+                32768, 4096-point local map, local BA over 8 + 4 keyframes
+                and 1024 landmarks) over 128 frames of the bench's motion
+                (orbit_trajectory(144, radius=0.1, advance=144/768): each
+                frame moves as much as in bench.py's 768-frame run): frames
+                0-31 through track_rgbd, frames 32-127 through
+                track_rgbd_chunk in 12 chunks of 8. Gates: ATE of
+                corrected_poses_np < 1.5 cm, RPE-t < 1 cm, local-map inliers
+                > 50 after frame 0, state OK, >= 3 keyframes, > 300 live
+                landmarks, >= 2 local BA solves with finite poses, device
+                kf_obs equal to the host mirror, scratch slots dead, one FAST
+                launch per frame. Local BA is timed with CUDA events, the
+                other keyframe steps between two syncs. Then
+                torch.profiler over 2 more chunks.
 The last three lines are the kernels JSON, the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}.
 """
@@ -44,11 +59,193 @@ from amos_slam_tpu_torch.ops.kernels import fast_margin_nms as fmn_mod
 from amos_slam_tpu_torch.ops.kernels import timing
 
 N_FRAMES = 30
+SYS_FRAMES = 128        # gated main run of the system phase
+SYS_PER_FRAME = 32      # of which the first go through track_rgbd
+SYS_W = 8               # chunk width of track_rgbd_chunk, as bench.py
+SYS_PROFILED = 16       # two more chunks under torch.profiler
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def device_profile(prof, n_frames: int) -> dict:
+    """Device kernel time and launches per frame from a profiler window.
+    Device kernels carry device_type CUDA; the aten ops that launched them
+    carry the same time again, so each list is summed on its own."""
+    kernels, ops = [], []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us <= 0:
+            continue
+        on_device = getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+        (kernels if on_device else ops).append((dev_us, e.key, e.count))
+    kernels.sort(reverse=True)
+    ops.sort(reverse=True)
+    return {
+        "device_kernel_ms_per_frame": sum(r[0] for r in kernels) / 1e3 / n_frames,
+        "kernel_launches_per_frame": sum(r[2] for r in kernels) / n_frames,
+        "top_ops_by_device_ms": [
+            {"op": k[:48], "ms_per_frame": u / 1e3 / n_frames, "calls_per_frame": c / n_frames}
+            for u, k, c in ops[:8]
+        ],
+        "top_kernels_by_device_ms": [
+            {"kernel": k[:48], "ms_per_frame": u / 1e3 / n_frames,
+             "calls_per_frame": c / n_frames}
+            for u, k, c in kernels[:5]
+        ],
+    }
+
+
+def system_phase(fmn) -> int:
+    """Phase 5 (see the module docstring). Returns the FAST launches of the
+    gated run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from amos_slam_tpu_torch.system import System, TrackingState
+
+    dev = torch.device("cuda")
+    n = SYS_FRAMES + SYS_PROFILED
+    planes = synthetic.default_room(seed=1)
+    poses_gt = synthetic.orbit_trajectory(n, radius=0.1, advance=n / 768)
+    gray, depth = [], []
+    for T in poses_gt:   # grey as a camera delivers it, as bench.py stages it
+        g, d = synthetic.render(planes, T)
+        gray.append(np.clip(g, 0, 255).astype(np.uint8).astype(np.float32))
+        depth.append(d.astype(np.float32))
+    # frames staged on the card before the clock starts, as bench.py does
+    g_dev = torch.from_numpy(np.stack(gray)).to(dev)
+    d_dev = torch.from_numpy(np.stack(depth)).to(dev)
+    stamps = [i / 30.0 for i in range(n)]
+
+    slam = System(SystemConfig(use_dynamics=False))
+    ba = []   # (ran, ms) per local BA call, CUDA events around run_local_ba
+    run_ba = slam.map.run_local_ba
+
+    def timed_ba(slot):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        ran = run_ba(slot)
+        t1.record()
+        t1.synchronize()
+        ba.append((ran, t0.elapsed_time(t1)))
+        return ran
+
+    slam.map.run_local_ba = timed_ba
+    # the other keyframe-rate steps, each between two syncs (host clock);
+    # they run only at keyframes, so frames without one are not perturbed
+    steps = {}
+
+    def timed_step(name):
+        fn = getattr(slam.map, name)
+
+        def step(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            steps.setdefault(name, []).append((time.perf_counter() - t) * 1e3)
+            return out
+
+        setattr(slam.map, name, step)
+
+    for name in ("insert_keyframe", "create_new_points_dispatch",
+                 "create_new_points_resolve", "fuse_neighbors_dispatch",
+                 "fuse_neighbors_resolve", "cull_points_resolve",
+                 "cull_keyframes", "refresh_landmarks"):
+        timed_step(name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fmn.launches = 0
+    frame_ms, kf_frame_ms, chunk_ms, kf_chunk_ms = [], [], [], []
+    for i in range(SYS_PER_FRAME):
+        t = time.perf_counter()
+        slam.track_rgbd(g_dev[i], d_dev[i], stamps[i])
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+        if slam.stats[-1]["kf"]:
+            kf_frame_ms.append(frame_ms[-1])
+    for c in range(SYS_PER_FRAME, SYS_FRAMES, SYS_W):
+        t = time.perf_counter()
+        slam.track_rgbd_chunk(g_dev[c: c + SYS_W], d_dev[c: c + SYS_W],
+                              stamps[c: c + SYS_W])
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t) * 1e3)
+        if any(s["kf"] for s in slam.stats[-SYS_W:]):
+            kf_chunk_ms.append(chunk_ms[-1])
+    launches = fmn.launches
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    est = np.asarray(slam.corrected_poses_np())
+    gt = np.asarray(poses_gt[:SYS_FRAMES])
+    check(bool(np.isfinite(est).all()) and est.shape == (SYS_FRAMES, 4, 4),
+          f"system trajectory not finite or of shape {est.shape}")
+    ate = evaluate.ate_rmse(evaluate.positions_from_cw(est), evaluate.positions_from_cw(gt))
+    rpe_t, rpe_r = evaluate.rpe(est, gt)
+    inliers = [s["inliers"] for s in slam.stats[1:]]
+    m = slam.map
+    alive_pts = int(m.pt_alive.sum())
+    ba_ran = [ms for ran, ms in ba if ran]
+    kf_obs_dev = m.arrays.kf_obs[: m.n_kfs].cpu().numpy()
+    print(json.dumps({
+        "system_phase": "System(SystemConfig(use_dynamics=False)) 640x480 defaults",
+        "frames": SYS_FRAMES, "per_frame_frames": SYS_PER_FRAME,
+        "chunk_frames": SYS_FRAMES - SYS_PER_FRAME, "chunk_w": SYS_W,
+        "ate_m": ate, "rpe_t_m": rpe_t, "rpe_r_rad": rpe_r,
+        "min_inliers": min(inliers), "state": slam.state.name,
+        "keyframes": m.n_kfs, "keyframes_alive": int(m.kf_alive[: m.n_kfs].sum()),
+        "keyframe_frames": [int(f) for f in m.kf_frame_id[: m.n_kfs]],
+        "landmarks": m.n_pts, "landmarks_alive": alive_pts,
+        "frame_ms_median_after_5": statistics.median(frame_ms[5:]),
+        "frame_ms_first": frame_ms[0],
+        "chunk_ms_per_frame_median": statistics.median(chunk_ms) / SYS_W,
+        "chunk_ms": chunk_ms,
+        "keyframe_frame_ms": kf_frame_ms, "keyframe_chunk_ms": kf_chunk_ms,
+        "local_ba_calls": len(ba), "local_ba_solves": len(ba_ran),
+        "local_ba_ms": ba_ran,
+        "local_ba_ms_median": statistics.median(ba_ran) if ba_ran else None,
+        "keyframe_step_ms": steps,
+        "max_memory_allocated_bytes": peak_bytes,
+        "fast_kernel_launches": launches,
+    }))
+    check(launches == SYS_FRAMES,
+          f"{fmn_mod.NAME} launched {launches} times in {SYS_FRAMES} system frames")
+    check(ate < 0.015, f"system ATE {ate:.4f} m")
+    check(rpe_t < 0.01, f"system RPE-t {rpe_t:.4f} m")
+    check(min(inliers) > 50, f"system min inliers {min(inliers)}")
+    check(slam.state is TrackingState.OK, f"system state {slam.state.name}")
+    check(m.n_kfs >= 3, f"{m.n_kfs} keyframes")
+    check(alive_pts > 300, f"{alive_pts} live landmarks")
+    check(len(ba_ran) >= 2, f"{len(ba_ran)} local BA solves")
+    check(bool(torch.isfinite(m.arrays.kf_pose).all()), "keyframe poses not finite")
+    check(np.array_equal(kf_obs_dev, m.kf_obs_np[: m.n_kfs]),
+          "device kf_obs differs from the host mirror")
+    check(not bool(m.arrays.pt_valid[m.M - 1]) and not bool(m.arrays.kf_valid[m.K - 1]),
+          "a scratch slot was allocated")
+
+    # where the device time goes: two more chunks under the profiler
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for c in range(SYS_FRAMES, n, SYS_W):
+            slam.track_rgbd_chunk(g_dev[c: c + SYS_W], d_dev[c: c + SYS_W],
+                                  stamps[c: c + SYS_W])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    prof_out = device_profile(prof, SYS_PROFILED)
+    print(json.dumps({
+        "system_profile_frames": SYS_PROFILED,
+        "keyframes_in_window": sum(s["kf"] for s in slam.stats[-SYS_PROFILED:]),
+        "profiled_wall_ms_per_frame": wall_ms / SYS_PROFILED,
+        "device_busy_share_profiled": prof_out["device_kernel_ms_per_frame"]
+        / (wall_ms / SYS_PROFILED),
+        "device_busy_share_unprofiled": prof_out["device_kernel_ms_per_frame"]
+        / (statistics.median(chunk_ms) / SYS_W),
+        **prof_out,
+    }))
+    return launches
 
 
 def main() -> int:
@@ -168,41 +365,24 @@ def main() -> int:
         for i in range(3, 8):
             odo.track(*frames[i], timestamp=i / 30.0)
         wall_ms = (time.perf_counter() - t2) * 1e3
-    # Device kernels carry device_type CUDA; the aten ops that launched them
-    # carry the same time again, so each list is summed on its own.
-    kernels, ops = [], []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us <= 0:
-            continue
-        on_device = getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-        (kernels if on_device else ops).append((dev_us, e.key, e.count))
-    kernels.sort(reverse=True)
-    ops.sort(reverse=True)
-    dev_ms_per_frame = sum(r[0] for r in kernels) / 1e3 / 5
+    prof_out = device_profile(prof, 5)
     frame_med = statistics.median(frame_ms[5:])
     print(json.dumps({
         "profile_frames": 5, "profiled_wall_ms_per_frame": wall_ms / 5,
-        "device_kernel_ms_per_frame": dev_ms_per_frame,
-        "kernel_launches_per_frame": sum(r[2] for r in kernels) / 5,
-        "device_busy_share_unprofiled": dev_ms_per_frame / frame_med,
-        "top_ops_by_device_ms": [
-            {"op": k[:48], "ms_per_frame": u / 5e3, "calls_per_frame": c / 5}
-            for u, k, c in ops[:8]
-        ],
-        "top_kernels_by_device_ms": [
-            {"kernel": k[:48], "ms_per_frame": u / 5e3, "calls_per_frame": c / 5}
-            for u, k, c in kernels[:5]
-        ],
+        "device_busy_share_unprofiled": prof_out["device_kernel_ms_per_frame"] / frame_med,
+        **prof_out,
     }))
+
+    # 5. the system path
+    sys_launches = system_phase(fmn)
+    print(json.dumps({"fast_kernel_launches": {"odometry": launches,
+                                               "system": sys_launches}}))
 
     print(json.dumps({"kernels": [{
         "name": fmn_mod.NAME, "route": "cuda",
         "source": "amos_slam_tpu_torch/csrc/fast_margin_nms.cu",
         "replaces": "amos_slam_tpu/ops/pallas/fast_pallas.py:110",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches + sys_launches, "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
