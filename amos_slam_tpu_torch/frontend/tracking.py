@@ -11,7 +11,9 @@ single-pass motion-model track, the local-map track and the pose/velocity
 update, and returns everything the host's keyframe decision needs as one
 (3,) count vector. :func:`fused_frame_scan` runs W such steps over a chunk
 of frames against one fixed local-map view (the JAX package's ``lax.scan``
-is a Python loop here). ``RGBDOdometry`` is the map-free tracker.
+is a Python loop here); :func:`make_dyn_chunk_fn` builds the two-stage
+chunk, the geometric dynamic stage feeding each frame's step.
+``RGBDOdometry`` is the map-free tracker.
 """
 
 from __future__ import annotations
@@ -21,13 +23,15 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..config import SystemConfig
+from ..config import DynamicsConfig, SystemConfig
 from ..device import resolve_device
 from ..geometry import se3
 from ..geometry.camera import Camera, backproject, in_image, project
 from ..ops import hamming
+from ..ops.slic import dilate_mask
 from ..slam_map.slam_map import LocalMapTrackResult, LocalView, track_local_map
 from ..solvers.pose_opt import PoseObs, optimize_pose
+from .dynamics import compute_dynamics, config_kwargs
 from .features import FrameFeatures, ORBPipeline
 
 
@@ -163,12 +167,13 @@ def _accumulate_stats(stats_acc, lm) -> torch.Tensor:
 
 def _frame_step_core(
     pipe, image, depth, last, last_Tcw, velocity, view,
-    mm_radius, map_radius, min_lm, stats_acc,
+    mm_radius, map_radius, min_lm, suppress_mask, stats_acc,
 ) -> FusedStepResult:
-    """Body shared by fused_frame_step and fused_frame_scan."""
+    """Body shared by fused_frame_step, fused_frame_scan and the two-stage
+    chunk of make_dyn_chunk_fn."""
     T_pred = se3.orthonormalize(velocity @ last_Tcw)
     kp, _, _, patches = pipe.detect_keypoints(image)
-    feats = pipe.describe(kp, patches, depth)
+    feats = pipe.describe(kp, patches, depth, suppress_mask)
     # single pass: the local-map track that follows re-matches from this
     # pose (the reference's TrackLocalMap after TrackWithMotionModel,
     # src/Tracking.cc:688)
@@ -208,16 +213,20 @@ def fused_frame_step(
     mm_radius: torch.Tensor,
     map_radius: torch.Tensor,
     min_lm: int = 30,
+    suppress_mask: Optional[torch.Tensor] = None,
     stats_acc: Optional[torch.Tensor] = None,
 ) -> FusedStepResult:
     """One frame: ORB extraction + motion-model tracking + local-map
     tracking + the pose/velocity update, with no host read. The device
     state chain (pose, velocity, features) holds its own LOST fallback, so
-    the host reads only ``sup`` to supervise. (The JAX step's
-    ``suppress_mask`` comes with the dynamic stage, ROADMAP queue 1 item 6.)"""
+    the host reads only ``sup`` to supervise.
+
+    suppress_mask: optional (H, W) mask from compute_dynamics (or a dilated
+    stage-one mask); keypoints on it are dropped before their descriptors
+    (the Amos keypoint deletion)."""
     return _frame_step_core(
         pipe, image, depth, last, last_Tcw, velocity, view,
-        mm_radius, map_radius, min_lm, stats_acc,
+        mm_radius, map_radius, min_lm, suppress_mask, stats_acc,
     )
 
 
@@ -266,12 +275,14 @@ def fused_frame_scan(
     map_radius: torch.Tensor,
     min_lm: int = 30,
     stats_acc: Optional[torch.Tensor] = None,
+    suppress_masks: Optional[torch.Tensor] = None,   # (W, H, Wd)
 ) -> FusedChunkResult:
     """W fused frame steps against one local-map view, with no host read:
     the caller resolves the chunk's keyframe decisions from its (W, 3)
     ``ys.sup`` after the chunk (the reference's LocalMapping inserts
     keyframes from its consumer thread with comparable latency,
-    src/LocalMapping.cc:73)."""
+    src/LocalMapping.cc:73). ``suppress_masks`` carries a mask per frame
+    (the dilated stage-one masks of a chunk without the dynamic stage)."""
     V = view.ids.shape[0]
     acc = (torch.zeros((V, 2), dtype=torch.int32, device=last_Tcw.device)
            if stats_acc is None else stats_acc)
@@ -279,8 +290,8 @@ def fused_frame_scan(
     rows = []
     for w in range(images.shape[0]):
         res = _frame_step_core(
-            pipe, images[w], depths[w], feats, Tcw, vel, view,
-            mm_radius, map_radius, min_lm, acc,
+            pipe, images[w], depths[w], feats, Tcw, vel, view, mm_radius,
+            map_radius, min_lm, None if suppress_masks is None else suppress_masks[w], acc,
         )
         rows.append(ChunkYs(Tcw=res.Tcw, sup=res.sup,
                             sup_heavy=res.sup_heavy, feats=res.feats))
@@ -288,6 +299,78 @@ def fused_frame_scan(
     return FusedChunkResult(
         feats=feats, Tcw=Tcw, velocity=vel, stats_acc=acc, ys=stack_tree(rows)
     )
+
+
+class DynChunkResult(NamedTuple):
+    feats: FrameFeatures        # final frame's features
+    Tcw: torch.Tensor
+    velocity: torch.Tensor
+    stats_acc: torch.Tensor
+    gate_state: torch.Tensor    # (3,) EMA dynamic-gate levels (carried out)
+    geom_mask: torch.Tensor     # (H, W) geometric cluster mask (carried out:
+                                # dyn_stride > 1 reuses it across chunks; the
+                                # stage-one mask applies fresh every frame)
+    ys: ChunkYs
+
+
+def make_dyn_chunk_fn(pipe: ORBPipeline, dcfg: DynamicsConfig, min_lm: int,
+                      has_seg: bool):
+    """The W-frame two-stage chunk: for each frame, the geometric stage
+    (compute_dynamics) feeds keypoint suppression into the fused frame
+    step, with features, pose, velocity, the EMA gate levels, the
+    geometric mask and the stats accumulator carried frame to frame, and
+    no host read. Stage-one masks for the whole chunk come in precomputed.
+
+    With ``dyn_stride`` > 1 the geometric stage runs on frames whose index
+    is a multiple of the stride (a host ``if`` on host ints), and the other
+    frames reuse its cluster mask; the stage-one mask applies fresh every
+    frame (a mover crosses ~15 px per frame and would trail a reused one)."""
+    kw = dict(config_kwargs(dcfg), has_seg=has_seg)
+    stride = dcfg.dyn_stride
+
+    def dyn_chunk(
+        images,        # (W, H, Wd)
+        depths,        # (W, H, Wd)
+        prev_g,        # (*, H, Wd) tail of the previous chunk ([-1] is used)
+        prev_d,        # (*, H, Wd)
+        segs,          # (W, H, Wd) stage-one masks, or None without them
+        rgbs,          # (W, H, Wd, 3) or None
+        last: FrameFeatures,
+        last_Tcw, velocity, gates, mask_in, view, mm_radius, map_radius,
+        fid0: int, stats_acc,
+    ) -> DynChunkResult:
+        V = view.ids.shape[0]
+        acc = (torch.zeros((V, 2), dtype=torch.int32, device=last_Tcw.device)
+               if stats_acc is None else stats_acc)
+        feats, Tcw, vel, g8, geom = last, last_Tcw, velocity, gates, mask_in
+        rows = []
+        for i in range(images.shape[0]):
+            pg = prev_g[-1] if i == 0 else images[i - 1]
+            pd = prev_d[-1] if i == 0 else depths[i - 1]
+            if stride <= 1 or (fid0 + i) % stride == 0:
+                dyn = compute_dynamics(
+                    pipe.cam, pg, pd, images[i], depths[i],
+                    segs[i] if has_seg else None, Tcw, vel,
+                    feats.kp.xy, feats.kp.valid, fid0 + i,
+                    cur_rgb=None if rgbs is None else rgbs[i], gate_state=g8, **kw,
+                )
+                mask, geom, g8 = dyn.suppress_mask, dyn.geom_mask, dyn.gate_state
+            else:
+                mask = (dilate_mask(segs[i], dcfg.mask_dilate_radius) | geom
+                        if has_seg else geom)
+            res = _frame_step_core(
+                pipe, images[i], depths[i], feats, Tcw, vel, view,
+                mm_radius, map_radius, min_lm, mask, acc,
+            )
+            rows.append(ChunkYs(Tcw=res.Tcw, sup=res.sup,
+                                sup_heavy=res.sup_heavy, feats=res.feats))
+            feats, Tcw, vel, acc = res.feats, res.Tcw, res.velocity, res.stats_acc
+        return DynChunkResult(
+            feats=feats, Tcw=Tcw, velocity=vel, stats_acc=acc,
+            gate_state=g8, geom_mask=geom, ys=stack_tree(rows),
+        )
+
+    return dyn_chunk
 
 
 class RGBDOdometry:

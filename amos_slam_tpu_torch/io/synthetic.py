@@ -91,6 +91,83 @@ def room_with_mover(seed: int = 0, t: float = 0.0, speed: float = 1.2):
     return planes, len(planes) - 1
 
 
+def weak_room(seed: int, contrast: float = 70.0) -> List[Plane]:
+    """The default room's layout with low-contrast texture: few strong
+    corners, so a textured mover owns most of them."""
+    rng = np.random.default_rng(seed)
+
+    def tex(**kw):
+        return _block_texture(rng, contrast=contrast, **kw)
+
+    return [
+        Plane(2, 5.0, (-4.0, 4.0, -3.0, 3.0), tex()),
+        Plane(1, 1.6, (-4.0, 4.0, 0.0, 5.0), tex()),
+        Plane(1, -1.6, (-4.0, 4.0, 0.0, 5.0), tex()),
+        Plane(0, -2.5, (-3.0, 3.0, 0.0, 5.0), tex()),
+        Plane(0, 2.5, (-3.0, 3.0, 0.0, 5.0), tex()),
+        Plane(2, 3.0, (-0.8, 0.4, -0.6, 0.6), tex(block=6)),
+    ]
+
+
+def _dominant_mover(x0: float) -> Plane:
+    """A large high-contrast frontal plane whose texture rides with it."""
+    return Plane(2, 1.6, (x0, x0 + 1.2, -1.2, 1.2),
+                 _block_texture(np.random.default_rng(99), block=6, contrast=200.0),
+                 tex_scale=90.0, tex_anchor=(x0, 0.0))
+
+
+def dominant_mover_frames(n: int = 24, **render_kw):
+    """A textured mover crossing a weakly textured room, present from the
+    first frame (a person walking past plain walls). Returns (poses,
+    [(gray, depth, mover_mask)])."""
+    poses = orbit_trajectory(n, radius=0.1, advance=0.2)
+    frames = []
+    for i in range(n):
+        planes = weak_room(1) + [_dominant_mover(-1.5 + 2.0 * (i / 30.0))]
+        g, d, ids = render(planes, poses[i], return_ids=True, **render_kw)
+        frames.append((g, d, ids == len(planes) - 1))
+    return poses, frames
+
+
+def entering_mover_frames(n: int = 24, enter_at: int = 6, with_masks: bool = False,
+                          **render_kw):
+    """The dominant mover entering after the map is initialized (frames
+    0..enter_at-1 static). Returns (poses, [(gray, depth, mask)]): the mask
+    is the mover's (with_masks, from frame enter_at on) or None."""
+    poses = orbit_trajectory(n, radius=0.1, advance=0.2)
+    frames = []
+    for i in range(n):
+        planes = weak_room(1)
+        if i >= enter_at:
+            planes.append(_dominant_mover(-1.5 + 2.0 * (i / 30.0 - enter_at / 30.0)))
+        if with_masks and i >= enter_at:
+            g, d, ids = render(planes, poses[i], return_ids=True, **render_kw)
+            frames.append((g, d, ids == len(planes) - 1))
+        else:
+            g, d = render(planes, poses[i], **render_kw)
+            frames.append((g, d, None))
+    return poses, frames
+
+
+def luma_matched_mover(t: float):
+    """A room plus a mover whose grey texture comes from the walls'
+    generator (luma-matched), at near the back wall's depth, with a strong
+    chroma tint: only colour separates it. Returns (planes, mover_index)."""
+    rng = np.random.default_rng(5)
+    planes = [
+        Plane(2, 5.0, (-4.0, 4.0, -3.0, 3.0), _block_texture(rng)),
+        Plane(1, 1.6, (-4.0, 4.0, 0.0, 5.0), _block_texture(rng)),
+        Plane(1, -1.6, (-4.0, 4.0, 0.0, 5.0), _block_texture(rng)),
+        Plane(0, -2.5, (-3.0, 3.0, 0.0, 5.0), _block_texture(rng)),
+        Plane(0, 2.5, (-3.0, 3.0, 0.0, 5.0), _block_texture(rng)),
+    ]
+    x0 = -1.0 + 1.8 * t
+    planes.append(Plane(2, 4.75, (x0, x0 + 1.1, -1.0, 1.0),
+                        _block_texture(np.random.default_rng(99)),
+                        chroma=(1.6, 0.85, 0.55), tex_anchor=(x0, 0.0)))
+    return planes, len(planes) - 1
+
+
 def _sample_tex(tex, u, v, scale):
     iu = np.mod(u * scale, tex.shape[1] - 1)
     iv = np.mod(v * scale, tex.shape[0] - 1)

@@ -1,6 +1,7 @@
 """Epipolar geometry (port of the part of solvers/fundamental.py that the
-map needs). The batched F/H RANSAC of that module comes with the geometric
-dynamic stage (ROADMAP queue 1 item 6)."""
+map and the geometric dynamic stage need). The batched F RANSAC of that
+module has one user, the monocular initializer, and comes with it (ROADMAP
+queue 1 item 10)."""
 
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""System facade: the public API (port of system.py, RGB-D without dynamics).
+"""System facade: the public API (port of system.py, RGB-D).
 
 Mirrors the reference's System class (src/System.cc:38-645: construction,
 TrackRGBD, Reset, Shutdown, SaveTrajectoryTUM/KITTI) and the Tracking state
@@ -22,9 +22,18 @@ On the fast path that one small read per frame or chunk is the only sync;
 the (3N,) insertion payload is read only when a keyframe is inserted, and
 keyframe maintenance reads one small table per step.
 
+Two-stage dynamic rejection (``use_dynamics=True``, the default): with a
+previous frame, each frame runs the geometric stage (compute_dynamics: LK
+flow, PnP arbitration, epipolar and reprojection votes over SLIC/k-means
+depth clusters) and its suppression mask drops keypoints before their
+descriptors; a caller-given stage-one mask (``seg_mask`` / ``seg_masks``,
+any (H, W) mask) is dilated by ``mask_dilate_radius`` and joins it, also
+with ``use_dynamics=False``. ``rgb`` / ``rgbs`` make SLIC cluster in
+CIELAB.
+
 Not ported yet, and each raises ``NotImplementedError`` naming the ROADMAP
-item (queue 1) that brings it: dynamics (``use_dynamics=True``, 6),
-segmentation masks (7), RGB input for the CIELAB SLIC (6), loop closing /
+item (queue 1) that brings it: the segmentation model that produces
+stage-one masks is item 7 (applying a given mask is here); loop closing /
 relocalization / a vocabulary / global refinement (9), stereo and
 monocular tracking (10), map save/load (11). Without a loop closer, a LOST
 frame holds the last pose, as the JAX package does without one.
@@ -40,15 +49,18 @@ import torch
 
 from .config import SystemConfig
 from .device import resolve_device
+from .frontend.dynamics import compute_dynamics, config_kwargs
 from .frontend.features import FrameFeatures, ORBPipeline
 from .frontend.tracking import (
     fused_frame_scan,
     fused_frame_step,
     index_tree,
+    make_dyn_chunk_fn,
     track_motion_model,
 )
 from .geometry import se3
 from .io import trajectory
+from .ops.slic import dilate_mask
 from .slam_map.slam_map import SlamMap, track_local_map
 
 
@@ -73,9 +85,9 @@ class _ChunkRow(NamedTuple):
 class System:
     """The SLAM system facade for RGB-D input.
 
-        slam = System(SystemConfig(use_dynamics=False))
+        slam = System(SystemConfig())
         for gray, depth, t in frames:
-            Tcw = slam.track_rgbd(gray, depth, t)
+            Tcw = slam.track_rgbd(gray, depth, t)   # seg_mask=, rgb= optional
         slam.save_trajectory_tum("CameraTrajectory.txt")
 
     ``device`` defaults to the CUDA card and raises without one; pass
@@ -85,8 +97,6 @@ class System:
     def __init__(self, cfg: Optional[SystemConfig] = None, device=None,
                  vocabulary=None):
         self.cfg = cfg or SystemConfig()
-        if self.cfg.use_dynamics:
-            raise _not_ported("dynamic-object rejection (use_dynamics=True)", 6)
         if vocabulary is not None:
             raise _not_ported("place recognition (vocabulary)", 9)
         if self.cfg.sensor != "rgbd":
@@ -134,11 +144,57 @@ class System:
         # auto-reset when tracking is lost soon after initialization with a
         # tiny map (reference src/Tracking.cc:785-793)
         self._pending_reset = False
+        self._clear_dynamics()
 
-    def _upload(self, x) -> torch.Tensor:
+    def _clear_dynamics(self):
+        """The dynamic stage's carried state: the previous frame (grey and
+        depth, or a chunk's stacks), its flow sources, the EMA gate levels
+        ((3,) on the device, None = cold start at the absolute thresholds)
+        and the last geometric mask (reused on dyn_stride frames), and the
+        cached all-false mask that stands in for a missing one."""
+        self._zero_masks = {}   # (H, W) -> all-false device mask
+        self.prev_gray = None
+        self.prev_depth = None
+        self.prev_kp_xy = None
+        self.prev_kp_valid = None
+        self._dyn_gates = None
+        self._dyn_mask = None
+
+    def _upload(self, x, dtype=torch.float32) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
-            return x.to(self.device, torch.float32)
-        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device)
+            return x.to(self.device, dtype)
+        if dtype is torch.bool:
+            x = np.asarray(x) != 0
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device, dtype)
+
+    def _zero_mask(self, shape) -> torch.Tensor:
+        m = self._zero_masks.get(tuple(shape))
+        if m is None:
+            m = torch.zeros(tuple(shape), dtype=torch.bool, device=self.device)
+            self._zero_masks[tuple(shape)] = m
+        return m
+
+    def _dynamic_suppress(self, g, d, seg, rgb, flow_xy, flow_valid) -> torch.Tensor:
+        """This frame's suppression mask from the dynamic stage (state OK, a
+        previous frame held). On a ``dyn_stride`` frame the last geometric
+        mask is reused and the stage-one mask applies fresh (a mover
+        trails a reused one); otherwise compute_dynamics runs on the
+        previous frame and ``flow_xy`` / ``flow_valid`` (its corners) and
+        its gate levels and geometric mask are carried on."""
+        dcfg = self.cfg.dynamics
+        if (dcfg.dyn_stride > 1 and self.frame_id % dcfg.dyn_stride != 0
+                and self._dyn_mask is not None):
+            return (self._dyn_mask if seg is None
+                    else dilate_mask(seg, dcfg.mask_dilate_radius) | self._dyn_mask)
+        dyn = compute_dynamics(
+            self.cam, self.prev_gray, self.prev_depth, g, d, seg,
+            self.last_Tcw, self.velocity, flow_xy, flow_valid, self.frame_id,
+            has_seg=seg is not None, cur_rgb=rgb, gate_state=self._dyn_gates,
+            **config_kwargs(dcfg),
+        )
+        self._dyn_gates = dyn.gate_state
+        self._dyn_mask = dyn.geom_mask
+        return dyn.suppress_mask
 
     def _maybe_auto_reset(self):
         if self._pending_reset:
@@ -169,76 +225,129 @@ class System:
     # ------------------------------------------------------------------ api
     def track_rgbd(self, gray, depth, timestamp: float, seg_mask=None, rgb=None):
         """One (H, W) gray image [0, 255] and depth map [m] in, the camera
-        pose Tcw (4, 4) on the device out (reference System::TrackRGBD)."""
-        if seg_mask is not None:
-            raise _not_ported("the stage-one segmentation mask", 7)
-        if rgb is not None:
-            raise _not_ported("RGB input (CIELAB SLIC of the dynamic stage)", 6)
+        pose Tcw (4, 4) on the device out (reference System::TrackRGBD).
+
+        seg_mask: optional (H, W) stage-one mask of dynamic objects (any
+        dtype, nonzero = dynamic), dilated by ``mask_dilate_radius``.
+        rgb: optional (H, W, 3) colour frame in [0, 255]; the dynamic
+        stage's SLIC then clusters in CIELAB."""
         self._maybe_auto_reset()
         self.frame_id += 1
         g, d = self._upload(gray), self._upload(depth)
+        c = None if rgb is None else self._upload(rgb)
+        if self.prev_gray is not None and self.prev_gray.ndim == 3:
+            # chunk -> per-frame: the chunk path keeps the previous stacks
+            self.prev_gray = self.prev_gray[-1]
+            self.prev_depth = self.prev_depth[-1]
 
-        if self.state is TrackingState.OK:
-            # fast path: one fused frame step, one (3,) host read
+        use_dyn_fast = (self.cfg.use_dynamics and self.state is TrackingState.OK
+                        and self.prev_gray is not None)
+        use_plain_fast = (not self.cfg.use_dynamics and seg_mask is None
+                          and self.state is TrackingState.OK)
+        if use_dyn_fast or use_plain_fast:
+            # fast path: (the dynamic stage, then) one fused frame step, one
+            # (3,) host read
             view = self._view()
+            suppress = None
+            if use_dyn_fast:
+                # flow sources: the last frame's detected corners
+                # (``kp.valid`` is their validity before suppression)
+                seg = None if seg_mask is None else self._upload(seg_mask, torch.bool)
+                suppress = self._dynamic_suppress(g, d, seg, c, self.last_feats.kp.xy,
+                                                  self.last_feats.kp.valid)
             res = fused_frame_step(
                 self.pipeline, g, d, self.last_feats, self.last_Tcw,
                 self.velocity, view, self._r_mm, self._r_map,
                 min_lm=self.cfg.tracking.min_inliers_local_map,
-                stats_acc=self._stats_acc,
+                suppress_mask=suppress, stats_acc=self._stats_acc,
             )
             self._stats_acc = res.stats_acc
             self._acc_ids = view.ids
             self.last_feats = res.feats
             self.last_Tcw = res.Tcw
             self.velocity = res.velocity
+            self.prev_kp_xy = res.feats.kp.xy
+            self.prev_kp_valid = res.feats.kp.valid
+            self.prev_gray, self.prev_depth = g, d
             self.timestamps.append(timestamp)
             self.poses_cw.append(res.Tcw)
             self.frame_refs.append(self._ref_epoch())
             self._resolve_step(res, self.frame_id, res.sup.cpu().numpy())
             return res.Tcw
 
-        feats = self.pipeline.extract(g, depth_image=d)
+        seg = None if seg_mask is None else self._upload(seg_mask, torch.bool)
+        feats = self._extract_with_dynamics(g, d, seg, rgb=c)
         if self.state is TrackingState.NOT_INITIALIZED:
             Tcw = self._initialize(feats)
         else:
             Tcw = self._track(feats)
-        return self._finish_frame(feats, Tcw, timestamp)
+        return self._finish_frame(feats, Tcw, g, d, timestamp)
+
+    def _extract_with_dynamics(self, g, d, seg, rgb=None) -> FrameFeatures:
+        """The Amos split on the slow path: keypoints -> dynamic mask ->
+        descriptors (reference GrabImageRGBD, src/Tracking.cc:297-406)."""
+        kp, _, _, patches = self.pipeline.detect_keypoints(g)
+        suppress = None
+        if (self.cfg.use_dynamics and self.state is TrackingState.OK
+                and self.prev_gray is not None):
+            suppress = self._dynamic_suppress(g, d, seg, rgb, self.prev_kp_xy,
+                                              self.prev_kp_valid)
+        elif seg is not None:
+            suppress = dilate_mask(seg, self.cfg.dynamics.mask_dilate_radius)
+        # flow sources of the next frame's stage: all of this frame's
+        # corners, before suppression (the JAX slow path's choice)
+        self.prev_kp_xy, self.prev_kp_valid = kp.xy, kp.valid
+        return self.pipeline.describe(kp, patches, d, suppress)
 
     def track_rgbd_chunk(self, grays, depths, timestamps, seg_masks=None, rgbs=None):
         """Throughput mode: W frames per call.
 
-        grays/depths: (W, H, Wd) stacked frames; timestamps: length W.
-        Returns the (W, 4, 4) poses. The W fused frame steps run against
+        grays/depths: (W, H, Wd) stacked frames; timestamps: length W;
+        seg_masks: optional (W, H, Wd) stage-one masks; rgbs: optional
+        (W, H, Wd, 3) colour. Returns the (W, 4, 4) poses. The W frame
+        steps (each after its dynamic stage, with use_dynamics) run against
         one local-map view and the chunk's (W, 3) supervision rows are read
         once, after it: keyframe decisions resolve at chunk granularity.
         Falls back to the per-frame path while not initialized, while LOST,
-        and with ``cfg.deterministic``."""
-        if seg_masks is not None:
-            raise _not_ported("the stage-one segmentation mask", 7)
-        if rgbs is not None:
-            raise _not_ported("RGB input (CIELAB SLIC of the dynamic stage)", 6)
+        with ``cfg.deterministic``, and, with use_dynamics, until a
+        previous frame exists."""
         W = len(grays)
-        if self.cfg.deterministic or self.state is not TrackingState.OK:
+        use_dyn = self.cfg.use_dynamics and self.prev_gray is not None
+        if (self.cfg.deterministic or self.state is not TrackingState.OK
+                or (self.cfg.use_dynamics and not use_dyn)):
             return torch.stack([
-                self.track_rgbd(grays[j], depths[j], timestamps[j]) for j in range(W)
+                self.track_rgbd(grays[j], depths[j], timestamps[j],
+                                seg_mask=None if seg_masks is None else seg_masks[j],
+                                rgb=None if rgbs is None else rgbs[j])
+                for j in range(W)
             ])
 
         view = self._view()
         fid0 = self.frame_id + 1
         self.frame_id += W
-        res = fused_frame_scan(
-            self.pipeline, self._upload(grays), self._upload(depths),
-            self.last_feats, self.last_Tcw, self.velocity, view,
-            self._r_mm, self._r_map,
-            min_lm=self.cfg.tracking.min_inliers_local_map,
-            stats_acc=self._stats_acc,
-        )
+        g, d = self._upload(grays), self._upload(depths)
+        segs = None if seg_masks is None else self._upload(seg_masks, torch.bool)
+        if use_dyn:
+            res = self._dyn_chunk_call(
+                g, d, segs, None if rgbs is None else self._upload(rgbs), view, fid0)
+        else:
+            # without the dynamic stage a chunk's stage-one masks still
+            # apply, dilated (the JAX chunk drops them)
+            sup_masks = (None if segs is None else torch.stack(
+                [dilate_mask(m, self.cfg.dynamics.mask_dilate_radius) for m in segs]))
+            res = fused_frame_scan(
+                self.pipeline, g, d, self.last_feats, self.last_Tcw,
+                self.velocity, view, self._r_mm, self._r_map,
+                min_lm=self.cfg.tracking.min_inliers_local_map,
+                stats_acc=self._stats_acc, suppress_masks=sup_masks,
+            )
         self._stats_acc = res.stats_acc
         self._acc_ids = view.ids
         self.last_feats = res.feats
         self.last_Tcw = res.Tcw
         self.velocity = res.velocity
+        self.prev_kp_xy = res.feats.kp.xy
+        self.prev_kp_valid = res.feats.kp.valid
         self.timestamps.extend(timestamps)
         self.poses_cw.append(res.ys.Tcw)
         self.frame_refs.append(self._ref_epoch())
@@ -248,6 +357,27 @@ class System:
                             sup_heavy=res.ys.sup_heavy[j])
             self._resolve_step(row, fid0 + j, sup[j])
         return res.ys.Tcw
+
+    def _dyn_chunk_call(self, g, d, segs, rgbs, view, fid0: int):
+        """Run the two-stage W-frame chunk."""
+        fn = make_dyn_chunk_fn(self.pipeline, self.cfg.dynamics,
+                               self.cfg.tracking.min_inliers_local_map, segs is not None)
+        # per-frame -> chunk: lift the single previous frame to a stack
+        pg, pd = self.prev_gray, self.prev_depth
+        if pg.ndim == 2:
+            pg, pd = pg[None], pd[None]
+        gates = (self._dyn_gates if self._dyn_gates is not None
+                 else torch.zeros(3, dtype=torch.float32, device=self.device))
+        mask_in = (self._dyn_mask if self._dyn_mask is not None
+                   else self._zero_mask(g.shape[1:]))
+        res = fn(g, d, pg, pd, segs, rgbs, self.last_feats, self.last_Tcw,
+                 self.velocity, gates, mask_in, view, self._r_mm, self._r_map,
+                 fid0, self._stats_acc)
+        self._dyn_gates = res.gate_state
+        self._dyn_mask = res.geom_mask
+        # the whole stacks stay: the next chunk reads their last rows
+        self.prev_gray, self.prev_depth = g, d
+        return res
 
     def track_stereo(self, left, right, timestamp: float):
         raise _not_ported("stereo tracking", 10)
@@ -407,6 +537,7 @@ class System:
         self._stats_acc = None
         self._acc_ids = None
         self._epoch_key = None
+        self._clear_dynamics()
 
     def shutdown(self):
         """Apply pending counters and wait for the device."""
@@ -527,9 +658,11 @@ class System:
         if slot % mcfg.ba_cadence == 0 or slot < 4:
             self.map.run_local_ba(slot)
 
-    def _finish_frame(self, feats, Tcw, timestamp):
+    def _finish_frame(self, feats, Tcw, gray, depth, timestamp):
         self.last_feats = feats
         self.last_Tcw = Tcw
+        self.prev_gray = gray
+        self.prev_depth = depth
         self.timestamps.append(timestamp)
         self.poses_cw.append(Tcw)
         self.frame_refs.append(self._ref_epoch())

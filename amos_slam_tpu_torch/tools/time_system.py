@@ -1,6 +1,6 @@
 """Time System's per-frame and chunk paths against each other on one card.
 
-    python3 -m amos_slam_tpu_torch.tools.time_system [--frames 256] [--w 8]
+    python3 -m amos_slam_tpu_torch.tools.time_system [--frames 256] [--w 8] [--dynamics]
 
 One ``System(SystemConfig(use_dynamics=False))`` at the 640x480 defaults
 tracks ``orbit_trajectory(frames, radius=0.1, advance=frames/768)`` in the
@@ -14,6 +14,12 @@ the same time. Times are host clock ending in a device sync. Frames of a
 block that inserts a keyframe are reported apart. Prints one JSON line with
 each path's median ms per frame over the blocks without a keyframe, every
 block's ms per frame, the card's name and power limit. Needs a CUDA card.
+
+``--dynamics`` times the flagship's split instead: ``System(SystemConfig(
+dynamics=DynamicsConfig(dyn_stride=2)))`` on ``room_with_mover(seed=1,
+speed=1.5)`` with the renderer's mover mask as each frame's stage-one mask
+(``seg_mask`` / ``seg_masks``); a block of W frames holds W/2 frames that
+run the geometric stage and W/2 that reuse its mask.
 """
 
 from __future__ import annotations
@@ -26,48 +32,59 @@ import time
 import numpy as np
 import torch
 
-from ..config import SystemConfig
+from ..config import DynamicsConfig, SystemConfig
 from ..io import evaluate, synthetic
 from ..ops.kernels import timing
 from ..system import System
 
 
-def staged_frames(n: int, device):
-    """(gray, depth) stacks (n, 480, 640) on ``device`` and the ground-truth
-    poses of the bench's motion."""
+def staged_frames(n: int, device, mover: bool = False):
+    """(gray, depth) stacks (n, 480, 640) on ``device``, the mover masks
+    (with ``mover``, else None) and the ground-truth poses of the bench's
+    motion."""
     planes = synthetic.default_room(seed=1)
     poses = synthetic.orbit_trajectory(n, radius=0.1, advance=n / 768)
-    gray, depth = [], []
-    for T in poses:
-        g, d = synthetic.render(planes, T)
+    gray, depth, masks = [], [], []
+    for i, T in enumerate(poses):
+        if mover:
+            planes, mid = synthetic.room_with_mover(seed=1, t=i / 30.0, speed=1.5)
+            g, d, ids = synthetic.render(planes, T, return_ids=True)
+            masks.append(ids == mid)
+        else:
+            g, d = synthetic.render(planes, T)
         gray.append(np.clip(g, 0, 255).astype(np.uint8).astype(np.float32))
         depth.append(d.astype(np.float32))
+    m = torch.from_numpy(np.stack(masks)).to(device) if mover else None
     return (torch.from_numpy(np.stack(gray)).to(device),
-            torch.from_numpy(np.stack(depth)).to(device), poses)
+            torch.from_numpy(np.stack(depth)).to(device), m, poses)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=256)
     ap.add_argument("--w", type=int, default=8, help="chunk width")
+    ap.add_argument("--dynamics", action="store_true",
+                    help="the flagship's split: dyn_stride 2, stage-one masks every frame")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_system: no CUDA device available")
     W = args.w
-    g, d, poses = staged_frames(args.frames, torch.device("cuda"))
+    g, d, m, poses = staged_frames(args.frames, torch.device("cuda"), mover=args.dynamics)
     stamps = [i / 30.0 for i in range(args.frames)]
-    slam = System(SystemConfig(use_dynamics=False))
+    slam = System(SystemConfig(dynamics=DynamicsConfig(dyn_stride=2)) if args.dynamics
+                  else SystemConfig(use_dynamics=False))
 
     def per_frame(a: int) -> float:
         t = time.perf_counter()
         for i in range(a, a + W):
-            slam.track_rgbd(g[i], d[i], stamps[i])
+            slam.track_rgbd(g[i], d[i], stamps[i], seg_mask=None if m is None else m[i])
         torch.cuda.synchronize()
         return (time.perf_counter() - t) * 1e3 / W
 
     def chunk(a: int) -> float:
         t = time.perf_counter()
-        slam.track_rgbd_chunk(g[a: a + W], d[a: a + W], stamps[a: a + W])
+        slam.track_rgbd_chunk(g[a: a + W], d[a: a + W], stamps[a: a + W],
+                              seg_masks=None if m is None else m[a: a + W])
         torch.cuda.synchronize()
         return (time.perf_counter() - t) * 1e3 / W
 
@@ -84,7 +101,7 @@ def main() -> int:
     est = np.asarray(slam.corrected_poses_np())
     gt = np.asarray(poses[: len(est)])
     out = {
-        "tool": "time_system", "frames": len(est), "w": W,
+        "tool": "time_system", "frames": len(est), "w": W, "dynamics": args.dynamics,
         "ate_m": evaluate.ate_rmse(evaluate.positions_from_cw(est),
                                    evaluate.positions_from_cw(gt)),
         "keyframes": slam.map.n_kfs, "state": slam.state.name,

@@ -36,6 +36,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 launch per frame. Local BA is timed with CUDA events, the
                 other keyframe steps between two syncs. Then
                 torch.profiler over 2 more chunks.
+  6. dynamics -- the geometric dynamic stage on the card. (1) Mask level,
+                compute_dynamics at 640x480 with its defaults: the mover pair
+                of tests/test_dynamics.py (recall > 0.6, false positives
+                < 0.25), its clean pair (< 10% suppressed), the luma-matched
+                mover with its colour frame (recall > 0.5, false positives
+                < 0.25). (2) Pose level, tests/test_dynamic_slam_e2e.py's
+                adversarial suites in its config (MapConfig(32, 8192), 2048
+                local points, deterministic), each against the port's own
+                use_dynamics=False run: the entering mover, geometric only
+                (baseline ATE > 0.2, dynamics < 0.15 and < 0.5x baseline);
+                the dominant mover with oracle stage-one masks (< 0.1 and
+                < 0.35x baseline). (3) Full width: System(SystemConfig(
+                use_dynamics=True, dynamics=DynamicsConfig(dyn_stride=2)))
+                at the defaults over 96 frames of room_with_mover(seed=1,
+                speed=1.5) on orbit_trajectory(104, radius=0.1,
+                advance=104/768), the renderer's mover mask as the stage-one
+                mask: frames 0-31 through track_rgbd, 32-95 through
+                track_rgbd_chunk in chunks of 8. Gates: ATE of
+                corrected_poses_np < 3 cm, RPE-t < 1 cm, inliers > 50 after
+                frame 0, state OK, >= 3 keyframes, one FAST launch per frame.
+                Then one more chunk under torch.profiler, and lk_flow,
+                slic_kmeans, ransac_pnp and compute_dynamics alone at the
+                path's shapes: per-call time of 10 back-to-back calls
+                between CUDA events, device time and launches of one call.
 The last three lines are the kernels JSON, the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}.
 """
@@ -63,6 +87,9 @@ SYS_FRAMES = 128        # gated main run of the system phase
 SYS_PER_FRAME = 32      # of which the first go through track_rgbd
 SYS_W = 8               # chunk width of track_rgbd_chunk, as bench.py
 SYS_PROFILED = 16       # two more chunks under torch.profiler
+DYN_FRAMES = 96         # gated full-width run of the dynamics phase
+DYN_PER_FRAME = 32      # of which the first go through track_rgbd
+DYN_W = 8               # chunk width; one more chunk is profiled
 
 
 def check(cond: bool, msg: str) -> None:
@@ -248,6 +275,263 @@ def system_phase(fmn) -> int:
     return launches
 
 
+def _to_dev(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to("cuda") for a in arrays]
+
+
+def _recall_fp(sup, mover, trail_from):
+    """Mover recall, and the suppressed share of the static scene outside
+    the mover's footprint dilated by 24 px (tests/test_dynamics.py)."""
+    from amos_slam_tpu_torch.ops.slic import dilate_mask
+
+    trail = dilate_mask(torch.from_numpy(trail_from), 24).numpy()
+    sup = sup.cpu().numpy()
+    return (float((sup & mover).sum() / max(mover.sum(), 1)),
+            float((sup & ~trail).sum() / (~trail).sum()))
+
+
+def _dyn_pair(pipe, f0, f1, T0, T1, frame_idx, rgb=None):
+    """compute_dynamics on the card with its own defaults (the JAX tests'
+    setting), flow sources from the card's ORB front end."""
+    from amos_slam_tpu_torch.frontend.dynamics import compute_dynamics
+
+    g0, d0, g1, d1 = _to_dev(f0[0], f0[1], f1[0], f1[1])
+    kp = pipe.detect_keypoints(g0)[0]
+    T0d, vel = _to_dev(T0.astype(np.float32), (T1 @ np.linalg.inv(T0)).astype(np.float32))
+    return compute_dynamics(pipe.cam, g0, d0, g1, d1, None, T0d, vel, kp.xy, kp.valid,
+                            frame_idx, has_seg=False,
+                            cur_rgb=None if rgb is None else _to_dev(rgb)[0].float())
+
+
+def _suite_ate(frames, poses, use_dynamics, seg=False):
+    """One adversarial-suite run in tests/test_dynamic_slam_e2e.py's config;
+    the ATE of the tracked poses, as that file measures it."""
+    from amos_slam_tpu_torch.config import MapConfig, TrackingConfig
+    from amos_slam_tpu_torch.system import System
+
+    slam = System(SystemConfig(map=MapConfig(max_keyframes=32, max_points=8192),
+                               tracking=TrackingConfig(max_map_points_local=2048),
+                               use_dynamics=use_dynamics, deterministic=True))
+    for i, (g, d, m) in enumerate(frames):
+        slam.track_rgbd(g, d, i / 30.0, seg_mask=m if seg else None)
+    slam.shutdown()
+    est = np.asarray(slam.poses_np())
+    return evaluate.ate_rmse(evaluate.positions_from_cw(est),
+                             evaluate.positions_from_cw(np.asarray(poses)))
+
+
+def _event_ms(fn, reps: int = 10) -> float:
+    """Per-call time of ``reps`` back-to-back calls between CUDA events,
+    after one warm-up call (host-bound calls: the host's launch rate)."""
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def _profiled_call(fn) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    p = device_profile(prof, 1)
+    return {"device_kernel_ms": p["device_kernel_ms_per_frame"],
+            "launches": p["kernel_launches_per_frame"],
+            "top_kernels": p["top_kernels_by_device_ms"][:3]}
+
+
+def dynamics_phase(fmn) -> int:
+    """Phase 6 (see the module docstring). Returns the FAST launches of its
+    runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from amos_slam_tpu_torch.config import DynamicsConfig
+    from amos_slam_tpu_torch.frontend.dynamics import (compute_dynamics, config_kwargs,
+                                                       ransac_generator)
+    from amos_slam_tpu_torch.frontend.features import ORBPipeline
+    from amos_slam_tpu_torch.geometry import se3
+    from amos_slam_tpu_torch.geometry.camera import backproject
+    from amos_slam_tpu_torch.ops.lk import lk_flow
+    from amos_slam_tpu_torch.ops.slic import slic_kmeans
+    from amos_slam_tpu_torch.solvers.pnp import ransac_pnp
+    from amos_slam_tpu_torch.system import System, TrackingState
+
+    fmn.launches = 0
+    cfg = SystemConfig()
+    pipe = ORBPipeline(cfg.orb, cfg.camera)
+
+    # 6.1 mask level at 640x480
+    poses = synthetic.orbit_trajectory(20, radius=0.05, advance=0.1)
+    pair = []
+    for i, t in ((3, 0.1), (4, 0.1333)):
+        planes, mover = synthetic.room_with_mover(seed=1, t=t, speed=3.0)
+        g, d, ids = synthetic.render(planes, poses[i], return_ids=True)
+        pair.append((g, d, ids == mover))
+    res = _dyn_pair(pipe, pair[0], pair[1], poses[3], poses[4], 0)
+    recall, fp = _recall_fp(res.suppress_mask, pair[1][2], pair[0][2] | pair[1][2])
+    cposes = synthetic.orbit_trajectory(10, radius=0.05, advance=0.1)
+    room = synthetic.default_room(seed=2)
+    clean = _dyn_pair(pipe, synthetic.render(room, cposes[3]), synthetic.render(room, cposes[4]),
+                      cposes[3], cposes[4], 1)
+    clean_share = float(clean.suppress_mask.float().mean())
+    lposes = synthetic.orbit_trajectory(16, radius=0.08, advance=0.15)
+    luma = []
+    for i in (10, 11):
+        planes, mid = synthetic.luma_matched_mover(i / 30.0)
+        g, d, ids, rgb = synthetic.render(planes, lposes[i], return_ids=True, return_rgb=True)
+        luma.append((g, d, ids == mid, rgb))
+    lres = _dyn_pair(pipe, luma[0], luma[1], lposes[10], lposes[11], 0, rgb=luma[1][3])
+    l_recall, l_fp = _recall_fp(lres.suppress_mask, luma[1][2], luma[1][2])
+    print(json.dumps({"dynamics_mask_level": "compute_dynamics 640x480, its defaults",
+                      "mover_recall": recall, "mover_false_pos": fp,
+                      "clean_suppressed_share": clean_share,
+                      "luma_matched_recall": l_recall, "luma_matched_false_pos": l_fp}))
+    check(recall > 0.6 and fp < 0.25, f"mover pair recall {recall:.3f} false pos {fp:.3f}")
+    check(clean_share < 0.1, f"clean pair suppressed share {clean_share:.3f}")
+    check(l_recall > 0.5 and l_fp < 0.25,
+          f"luma-matched recall {l_recall:.3f} false pos {l_fp:.3f}")
+
+    # 6.2 pose level: the adversarial suites against the port's own baseline
+    e_poses, e_frames = synthetic.entering_mover_frames()
+    e_dyn = _suite_ate(e_frames, e_poses, True)
+    e_off = _suite_ate(e_frames, e_poses, False)
+    d_poses, d_frames = synthetic.dominant_mover_frames()
+    d_seg = _suite_ate(d_frames, d_poses, True, seg=True)
+    d_off = _suite_ate(d_frames, d_poses, False)
+    print(json.dumps({"dynamics_pose_level": "tests/test_dynamic_slam_e2e.py config",
+                      "entering_geometric_ate_m": e_dyn, "entering_baseline_ate_m": e_off,
+                      "dominant_seg_ate_m": d_seg, "dominant_baseline_ate_m": d_off}))
+    check(e_off > 0.2, f"entering-mover baseline ATE {e_off:.4f} (fixture lost its teeth)")
+    check(e_dyn < 0.15 and e_dyn < 0.5 * e_off,
+          f"entering-mover geometric ATE {e_dyn:.4f} vs baseline {e_off:.4f}")
+    check(d_seg < 0.1 and d_seg < 0.35 * d_off,
+          f"dominant-mover two-stage+seg ATE {d_seg:.4f} vs baseline {d_off:.4f}")
+
+    # 6.3 the full-width run: the flagship's split without a segmenter
+    n = DYN_FRAMES + DYN_W
+    fposes = synthetic.orbit_trajectory(n, radius=0.1, advance=n / 768)
+    gray, depth, masks = [], [], []
+    for i, T in enumerate(fposes):
+        planes, mover = synthetic.room_with_mover(seed=1, t=i / 30.0, speed=1.5)
+        g, d, ids = synthetic.render(planes, T, return_ids=True)
+        gray.append(np.clip(g, 0, 255).astype(np.uint8).astype(np.float32))
+        depth.append(d)
+        masks.append(ids == mover)
+    g_dev, d_dev, m_dev = _to_dev(np.stack(gray), np.stack(depth), np.stack(masks))
+    stamps = [i / 30.0 for i in range(n)]
+    slam = System(SystemConfig(use_dynamics=True, dynamics=DynamicsConfig(dyn_stride=2)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches0 = fmn.launches
+    frame_ms, chunk_ms = [], []
+    for i in range(DYN_PER_FRAME):
+        t = time.perf_counter()
+        slam.track_rgbd(g_dev[i], d_dev[i], stamps[i], seg_mask=m_dev[i])
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+    for c in range(DYN_PER_FRAME, DYN_FRAMES, DYN_W):
+        t = time.perf_counter()
+        slam.track_rgbd_chunk(g_dev[c: c + DYN_W], d_dev[c: c + DYN_W], stamps[c: c + DYN_W],
+                              seg_masks=m_dev[c: c + DYN_W])
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t) * 1e3)
+    run_launches = fmn.launches - launches0
+    phase_launches = fmn.launches
+    peak_bytes = torch.cuda.max_memory_allocated()
+    est = np.asarray(slam.corrected_poses_np())
+    gt = np.asarray(fposes[:DYN_FRAMES])
+    check(bool(np.isfinite(est).all()) and est.shape == (DYN_FRAMES, 4, 4),
+          f"dynamics trajectory not finite or of shape {est.shape}")
+    ate = evaluate.ate_rmse(evaluate.positions_from_cw(est), evaluate.positions_from_cw(gt))
+    rpe_t, rpe_r = evaluate.rpe(est, gt)
+    inliers = [s["inliers"] for s in slam.stats[1:]]
+
+    # one more chunk under the profiler
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        slam.track_rgbd_chunk(g_dev[DYN_FRAMES:], d_dev[DYN_FRAMES:], stamps[DYN_FRAMES:],
+                              seg_masks=m_dev[DYN_FRAMES:])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    prof_out = device_profile(prof, DYN_W)
+
+    # the stage's parts alone, at the path's shapes (frames 94 -> 95)
+    dc = slam.cfg.dynamics
+    pg, pd, cg, cd = g_dev[DYN_FRAMES - 2], d_dev[DYN_FRAMES - 2], g_dev[DYN_FRAMES - 1], \
+        d_dev[DYN_FRAMES - 1]
+    kp = pipe.detect_keypoints(pg)[0]
+    src, src_ok = kp.xy[::2][:512], kp.valid[::2][:512]
+    lds = dc.lk_downsample
+    lk_args = (pg[::lds, ::lds], cg[::lds, ::lds], src / lds, src_ok)
+    lk_kw = dict(levels=dc.lk_levels - 1, win_half=dc.lk_win, iters=dc.lk_iters)
+    flow = lk_flow(*lk_args, **lk_kw)
+    pts1 = flow.pts1 * lds
+    xi = torch.clamp(torch.round(src[:, 0]).long(), 0, cg.shape[1] - 1)
+    yi = torch.clamp(torch.round(src[:, 1]).long(), 0, cg.shape[0] - 1)
+    d0 = pd[yi, xi]
+    T_last = slam.last_Tcw
+    pts_w = se3.transform_points(se3.inv_T(T_last), backproject(pipe.cam, src, d0.clamp(min=1e-3)))
+    pnp_valid = flow.valid & (d0 > 0)
+    slic_kw = dict(cell=dc.slic_cell, slic_iters=dc.slic_iters, k=dc.n_clusters)
+    dyn_kw = dict(config_kwargs(dc), has_seg=True)
+    parts = {
+        "lk_flow": lambda: lk_flow(*lk_args, **lk_kw),
+        "slic_kmeans": lambda: slic_kmeans(cg, cd, **slic_kw),
+        "ransac_pnp": lambda: ransac_pnp(pipe.cam, pts_w, pts1, pnp_valid,
+                                         generator=ransac_generator(95, "cuda"),
+                                         n_hyp=dc.pnp_hypotheses),
+        "compute_dynamics": lambda: compute_dynamics(
+            pipe.cam, pg, pd, cg, cd, m_dev[DYN_FRAMES - 1], T_last, slam.velocity,
+            kp.xy, kp.valid, 95, **dyn_kw),
+    }
+    timed = {name: {"event_ms_per_call": _event_ms(fn), **_profiled_call(fn)}
+             for name, fn in parts.items()}
+    timed["shapes"] = {"lk_flow": f"{int(src.shape[0])} tracks, {lk_kw['levels']} levels at "
+                                  f"{tuple(lk_args[0].shape)}",
+                       "slic_kmeans": f"{tuple(cg.shape)}",
+                       "ransac_pnp": f"{dc.pnp_hypotheses} x {int(pts_w.shape[0])}"}
+    print(json.dumps({"dynamics_parts_alone": timed}))
+
+    print(json.dumps({
+        "dynamics_full_width": "System(SystemConfig(use_dynamics=True, "
+                               "dynamics=DynamicsConfig(dyn_stride=2))) 640x480 defaults, "
+                               "renderer's mover mask as the stage-one mask",
+        "frames": DYN_FRAMES, "per_frame_frames": DYN_PER_FRAME,
+        "chunk_frames": DYN_FRAMES - DYN_PER_FRAME, "chunk_w": DYN_W,
+        "ate_m": ate, "rpe_t_m": rpe_t, "rpe_r_rad": rpe_r,
+        "min_inliers": min(inliers), "state": slam.state.name, "keyframes": slam.map.n_kfs,
+        "frame_ms_median_after_5": statistics.median(frame_ms[5:]),
+        # with dyn_stride=2 the per-frame times are bimodal: even frames run
+        # the stage, odd frames reuse its mask; a chunk's time is their mean
+        "frame_ms_mean_after_5": statistics.mean(frame_ms[5:]),
+        "frame_ms_with_stage_median": statistics.median(frame_ms[6::2]),
+        "frame_ms_reusing_mask_median": statistics.median(frame_ms[5::2]),
+        "chunk_ms_per_frame_median": statistics.median(chunk_ms) / DYN_W,
+        "chunk_ms": chunk_ms,
+        "max_memory_allocated_bytes": peak_bytes,
+        "fast_kernel_launches": run_launches,
+        "profiled_chunk_wall_ms_per_frame": wall_ms / DYN_W,
+        "device_busy_share_profiled": prof_out["device_kernel_ms_per_frame"] / (wall_ms / DYN_W),
+        **prof_out,
+    }))
+    check(run_launches == DYN_FRAMES,
+          f"{fmn_mod.NAME} launched {run_launches} times in {DYN_FRAMES} dynamics frames")
+    check(ate < 0.03, f"dynamics ATE {ate:.4f} m")
+    check(rpe_t < 0.01, f"dynamics RPE-t {rpe_t:.4f} m")
+    check(min(inliers) > 50, f"dynamics min inliers {min(inliers)}")
+    check(slam.state is TrackingState.OK, f"dynamics state {slam.state.name}")
+    check(slam.map.n_kfs >= 3, f"{slam.map.n_kfs} keyframes with dynamics")
+    return phase_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -375,14 +659,16 @@ def main() -> int:
 
     # 5. the system path
     sys_launches = system_phase(fmn)
-    print(json.dumps({"fast_kernel_launches": {"odometry": launches,
-                                               "system": sys_launches}}))
+    # 6. the system path with the geometric dynamic stage
+    dyn_launches = dynamics_phase(fmn)
+    print(json.dumps({"fast_kernel_launches": {"odometry": launches, "system": sys_launches,
+                                               "dynamics": dyn_launches}}))
 
     print(json.dumps({"kernels": [{
         "name": fmn_mod.NAME, "route": "cuda",
         "source": "amos_slam_tpu_torch/csrc/fast_margin_nms.cu",
         "replaces": "amos_slam_tpu/ops/pallas/fast_pallas.py:110",
-        "launches": launches + sys_launches, "max_abs_err": max_err,
+        "launches": launches + sys_launches + dyn_launches, "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,

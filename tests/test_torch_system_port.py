@@ -234,16 +234,12 @@ def test_save_trajectory_tum_round_trip(per_frame, tmp_path):
 
 def test_unported_features_raise(orbit):
     g, d = orbit[1][0]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        System(dataclasses.replace(cfg(), use_dynamics=True), device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         System(cfg(), device="cpu", vocabulary=object())
     with pytest.raises(NotImplementedError, match="item 10"):
         System(dataclasses.replace(cfg(), sensor="mono"), device="cpu")
     slam = System(cfg(), device="cpu")
     calls = {
-        "7": lambda: slam.track_rgbd(g, d, 0.0, seg_mask=np.zeros_like(g, bool)),
-        "6": lambda: slam.track_rgbd(g, d, 0.0, rgb=np.zeros(g.shape + (3,), np.uint8)),
         "10": lambda: slam.track_stereo(g, g, 0.0),
         "11": lambda: slam.save_map("x"),
     }
@@ -251,11 +247,16 @@ def test_unported_features_raise(orbit):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             call()
     for call in (lambda: slam.track_monocular(g, 0.0), lambda: slam.load_map("x"),
-                 lambda: slam.track_rgbd_chunk(g[None], d[None], [0.0],
-                                               seg_masks=np.zeros((1,) + g.shape, bool))):
+                 lambda: slam.global_refine()):
         with pytest.raises(NotImplementedError):
             call()
     assert slam.frame_id == -1 and not slam.poses_cw     # nothing was tracked
+    # dynamics, stage-one masks and colour input are ported: they construct
+    # and track
+    dyn = System(dataclasses.replace(cfg(), use_dynamics=True), device="cpu")
+    dyn.track_rgbd(g, d, 0.0, seg_mask=np.zeros_like(g, bool),
+                   rgb=np.zeros(g.shape + (3,), np.uint8))
+    assert dyn.frame_id == 0 and dyn.state is TrackingState.OK
 
 
 def test_system_defaults_to_cuda():
