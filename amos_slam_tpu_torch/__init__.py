@@ -10,11 +10,15 @@ card unless the caller passes ``device="cpu"``.
 Subpackages (ported so far)
 ---------------------------
 geometry   SE3 Lie group, pinhole camera.
-solvers    Robust weights, small SPD solves, motion-only pose optimization.
+solvers    Robust weights, pose optimization, local BA, PnP, epipolar distance.
 ops        Pyramid, FAST-9, rBRIEF, Hamming matching; kernels/ holds the
            CUDA kernel wrappers.
-frontend   ORB extraction pipeline, motion-model tracking, RGB-D odometry.
+frontend   ORB extraction pipeline, tracking, the geometric dynamic stage.
+slam_map   Map state, local-map tracking, triangulation, maintenance.
+models     YOLACT stage one: ResNet-FPN, ProtoNet, fast-NMS, Segmenter.
 io         Synthetic scenes, trajectory IO, ATE/RPE evaluation.
+tools      Timing tools for the card.
+system     The System facade (RGB-D; per-frame and chunked tracking).
 """
 
 import torch as _torch

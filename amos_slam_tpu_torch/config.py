@@ -84,10 +84,11 @@ class ORBConfig:
 @dataclass(frozen=True)
 class DynamicsConfig:
     """Two-stage dynamic rejection: the geometric stage
-    (frontend/dynamics.py) and the dilation of a caller's stage-one mask.
-    The segmenter's fields (person_class_id, seg_score_th, seg_top_k) wait
-    for the segmentation model (ROADMAP queue 1 item 7); every field is
-    kept so one SystemConfig describes both packages."""
+    (frontend/dynamics.py) and the dilation of a stage-one mask (made by
+    models/segmenter.py or given by the caller). The segmenter's fields
+    (person_class_id, seg_score_th, seg_top_k) are kept so one SystemConfig
+    describes both packages; as in the JAX package, ``Segmenter`` takes its
+    own arguments and neither package reads them."""
 
     n_clusters: int = 15              # k-means clusters (src/Frame.cc:525)
     slic_cell: int = 16               # SLIC cell length (reference uses 5)

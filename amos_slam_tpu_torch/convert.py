@@ -5,7 +5,8 @@ Keypoints, PoseObs, MapArrays, ...). The port has NamedTuples of the same
 names and fields, holding tensors. These helpers turn one into the other
 through numpy, so a test can feed both packages identical state; this module
 never imports jax (``np.asarray`` reads a jax array). :func:`slam_map_from`
-carries a whole map across, device arrays and host mirrors.
+carries a whole map across, device arrays and host mirrors;
+:func:`yolact_state_dict` carries YOLACT weights.
 """
 
 from __future__ import annotations
@@ -81,6 +82,35 @@ def slam_map_from(src, cfg, cam: Camera, device):
     m.loop_edges = [(int(i), int(j), np.array(T), float(s))
                     for (i, j, T, s) in src.loop_edges]
     return m
+
+
+def yolact_state_dict(flax_params) -> dict:
+    """The port's YOLACT ``state_dict`` (f32 CPU tensors) holding the JAX
+    package's Yolact parameters (a ``{"params": ...}`` tree of arrays):
+    the inverse of the JAX package's ``port_state_dict``. Conv kernels go
+    from (kh, kw, in, out) to (out, in, kh, kw); batch norm's
+    scale/bias/mean/var become weight/bias/running_mean/running_var; the
+    FPN's reversed pairing and ProtoNet's indices are undone
+    (``models.port_torch.name_map``)."""
+    from .models.port_torch import name_map
+
+    tree = flax_params["params"]
+    layers = []     # blocks per stage, from the backbone's layer{s}_{b} names
+    while f"layer{len(layers)}_0" in tree["backbone"]:
+        n = 0
+        while f"layer{len(layers)}_{n}" in tree["backbone"]:
+            n += 1
+        layers.append(n)
+    out = {}
+    for path, key in name_map(layers):
+        leaf = tree
+        for name in path:
+            leaf = leaf[name]
+        a = np.array(leaf, np.float32)
+        if path[-1] == "kernel":
+            a = np.transpose(a, (3, 2, 0, 1))
+        out[key] = torch.from_numpy(np.ascontiguousarray(a))
+    return out
 
 
 def tree_to_numpy(tree) -> dict:

@@ -26,17 +26,17 @@ Two-stage dynamic rejection (``use_dynamics=True``, the default): with a
 previous frame, each frame runs the geometric stage (compute_dynamics: LK
 flow, PnP arbitration, epipolar and reprojection votes over SLIC/k-means
 depth clusters) and its suppression mask drops keypoints before their
-descriptors; a caller-given stage-one mask (``seg_mask`` / ``seg_masks``,
-any (H, W) mask) is dilated by ``mask_dilate_radius`` and joins it, also
-with ``use_dynamics=False``. ``rgb`` / ``rgbs`` make SLIC cluster in
-CIELAB.
+descriptors; a stage-one mask (``seg_mask`` / ``seg_masks``, any (H, W)
+mask: the flagship takes ``models.segmenter.Segmenter.person_mask_batch``
+of the chunk, a device tensor used without a copy) is dilated by
+``mask_dilate_radius`` and joins it, also with ``use_dynamics=False``.
+``rgb`` / ``rgbs`` make SLIC cluster in CIELAB.
 
 Not ported yet, and each raises ``NotImplementedError`` naming the ROADMAP
-item (queue 1) that brings it: the segmentation model that produces
-stage-one masks is item 7 (applying a given mask is here); loop closing /
-relocalization / a vocabulary / global refinement (9), stereo and
-monocular tracking (10), map save/load (11). Without a loop closer, a LOST
-frame holds the last pose, as the JAX package does without one.
+item (queue 1) that brings it: loop closing / relocalization / a
+vocabulary / global refinement (9), stereo and monocular tracking (10),
+map save/load (11). Without a loop closer, a LOST frame holds the last
+pose, as the JAX package does without one.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Time System's per-frame and chunk paths against each other on one card.
 
-    python3 -m amos_slam_tpu_torch.tools.time_system [--frames 256] [--w 8] [--dynamics]
+    python3 -m amos_slam_tpu_torch.tools.time_system [--frames 256] [--w 8] [--dynamics | --seg]
 
 One ``System(SystemConfig(use_dynamics=False))`` at the 640x480 defaults
 tracks ``orbit_trajectory(frames, radius=0.1, advance=frames/768)`` in the
@@ -20,6 +20,15 @@ dynamics=DynamicsConfig(dyn_stride=2)))`` on ``room_with_mover(seed=1,
 speed=1.5)`` with the renderer's mover mask as each frame's stage-one mask
 (``seg_mask`` / ``seg_masks``); a block of W frames holds W/2 frames that
 run the geometric stage and W/2 that reuse its mask.
+
+``--seg`` times the flagship against that split, both on
+``track_rgbd_chunk`` in the same System: a block of the flagship first
+makes its W masks with ``Segmenter(img_size=400).person_mask_batch``
+(bf16, random weights from seed 0) on the grey frames replicated to RGB,
+then tracks the chunk with them; the other block tracks its chunk with the
+renderer's masks. With random weights the segmenter's masks are empty
+while the renderer's cover the mover, so the two paths also keep other
+keypoints: their difference is the segmenter's cost plus that.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import torch
 
 from ..config import DynamicsConfig, SystemConfig
 from ..io import evaluate, synthetic
+from ..models.segmenter import Segmenter
 from ..ops.kernels import timing
 from ..system import System
 
@@ -63,15 +73,19 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=256)
     ap.add_argument("--w", type=int, default=8, help="chunk width")
-    ap.add_argument("--dynamics", action="store_true",
-                    help="the flagship's split: dyn_stride 2, stage-one masks every frame")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--dynamics", action="store_true",
+                      help="the flagship's split: dyn_stride 2, stage-one masks every frame")
+    mode.add_argument("--seg", action="store_true",
+                      help="the flagship (segmenter masks) against the split (renderer masks)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_system: no CUDA device available")
     W = args.w
-    g, d, m, poses = staged_frames(args.frames, torch.device("cuda"), mover=args.dynamics)
+    dynamics = args.dynamics or args.seg
+    g, d, m, poses = staged_frames(args.frames, torch.device("cuda"), mover=dynamics)
     stamps = [i / 30.0 for i in range(args.frames)]
-    slam = System(SystemConfig(dynamics=DynamicsConfig(dyn_stride=2)) if args.dynamics
+    slam = System(SystemConfig(dynamics=DynamicsConfig(dyn_stride=2)) if dynamics
                   else SystemConfig(use_dynamics=False))
 
     def per_frame(a: int) -> float:
@@ -88,11 +102,25 @@ def main() -> int:
         torch.cuda.synchronize()
         return (time.perf_counter() - t) * 1e3 / W
 
+    order = (("track_rgbd", per_frame), ("track_rgbd_chunk", chunk))
+    if args.seg:
+        seg = Segmenter(img_size=400)
+        rgb = g[..., None].expand(-1, -1, -1, 3)     # grey replicated, as bench.py
+
+        def segmented_chunk(a: int) -> float:
+            t = time.perf_counter()
+            masks = seg.person_mask_batch(rgb[a: a + W])
+            slam.track_rgbd_chunk(g[a: a + W], d[a: a + W], stamps[a: a + W], seg_masks=masks)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) * 1e3 / W
+
+        seg.person_mask_batch(rgb[:W])      # warm-up
+        order = (("track_rgbd_chunk", chunk), ("segmenter_then_chunk", segmented_chunk))
+
     for a in range(0, 2 * W, W):
         per_frame(a)
-    blocks = {"track_rgbd": [], "track_rgbd_chunk": []}
+    blocks = {name: [] for name, _ in order}
     for k, a in enumerate(range(2 * W, args.frames - 2 * W + 1, 2 * W)):
-        order = (("track_rgbd", per_frame), ("track_rgbd_chunk", chunk))
         for j, (name, fn) in enumerate(order if k % 2 == 0 else order[::-1]):
             start = a + j * W
             ms = fn(start)
@@ -101,7 +129,8 @@ def main() -> int:
     est = np.asarray(slam.corrected_poses_np())
     gt = np.asarray(poses[: len(est)])
     out = {
-        "tool": "time_system", "frames": len(est), "w": W, "dynamics": args.dynamics,
+        "tool": "time_system", "frames": len(est), "w": W, "dynamics": dynamics,
+        "segmenter": args.seg,
         "ate_m": evaluate.ate_rmse(evaluate.positions_from_cw(est),
                                    evaluate.positions_from_cw(gt)),
         "keyframes": slam.map.n_kfs, "state": slam.state.name,

@@ -60,6 +60,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 slic_kmeans, ransac_pnp and compute_dynamics alone at the
                 path's shapes: per-call time of 10 back-to-back calls
                 between CUDA events, device time and launches of one call.
+  7. flagship -- YOLACT stage one at full width (ResNet-50 (3, 4, 6, 3), 81
+                classes, bf16, Flax's init from seed 0) feeding the flagship
+                path. (1) Segmenter alone: Segmenter(img_size=400) on an
+                (8, 480, 640, 3) chunk through person_mask_batch and
+                Segmenter() (550) on single frames through person_mask:
+                per-call time of 10 back-to-back calls between CUDA events,
+                device time and launches of one profiled call, the conv
+                FLOPs counted from the layer shapes and their bound at the
+                card's dense bf16 peak. (2) Mask content: with
+                person_classes=range(80) and score 0.0 (random weights give
+                empty masks at 81 classes and score 0.15), on two frames:
+                the card's f32 path against the port's CPU f32 path (raw
+                outputs within 1e-4 of max |CPU|, masks >= 99.9% equal),
+                masks covering 1-99% of the image, the card's bf16 path
+                against its f32 path within tests/test_torch_segmenter.py's
+                tolerances (8e-2 max, 2e-2 rms). (3) The flagship as
+                bench.py phase_two_stage runs it: System(SystemConfig(
+                dynamics=DynamicsConfig(dyn_stride=2))) at the defaults over
+                64 frames of phase 6's sequence in 8 chunks, each chunk's
+                masks from Segmenter(img_size=400).person_mask_batch on the
+                grey frames replicated to RGB, the next chunk's masks made
+                before the current chunk is tracked. Gates: ATE of
+                corrected_poses_np < 3 cm, RPE-t < 1 cm, inliers > 50 after
+                frame 0, state OK, >= 3 keyframes, one FAST launch per frame,
+                one segmenter call per chunk. Then one more chunk under
+                torch.profiler.
 The last three lines are the kernels JSON, the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}.
 """
@@ -90,6 +116,11 @@ SYS_PROFILED = 16       # two more chunks under torch.profiler
 DYN_FRAMES = 96         # gated full-width run of the dynamics phase
 DYN_PER_FRAME = 32      # of which the first go through track_rgbd
 DYN_W = 8               # chunk width; one more chunk is profiled
+SEG_W = 8               # flagship chunk width, as bench.py
+SEG_CHUNKS = 8          # gated flagship chunks; one more is profiled
+CARD_VS_CPU_F32 = 1e-4  # card f32 net vs CPU f32 net, max error over max |CPU|
+BF16_VS_F32 = (8e-2, 2e-2)   # max and rms error over |f32|: tests/test_torch_segmenter.py
+BF16_PEAK_FLOP_S = 989e12    # H100 SXM dense bf16 tensor-core peak (data sheet)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -348,9 +379,25 @@ def _profiled_call(fn) -> dict:
             "top_kernels": p["top_kernels_by_device_ms"][:3]}
 
 
-def dynamics_phase(fmn) -> int:
-    """Phase 6 (see the module docstring). Returns the FAST launches of its
-    runs."""
+def mover_sequence(n: int):
+    """room_with_mover(seed=1, speed=1.5) seen from orbit_trajectory(n,
+    radius=0.1, advance=n/768): grey (rounded to integers), depth and the
+    mover's mask staged on the card, and the poses (phases 6 and 7)."""
+    poses = synthetic.orbit_trajectory(n, radius=0.1, advance=n / 768)
+    gray, depth, masks = [], [], []
+    for i, T in enumerate(poses):
+        planes, mover = synthetic.room_with_mover(seed=1, t=i / 30.0, speed=1.5)
+        g, d, ids = synthetic.render(planes, T, return_ids=True)
+        gray.append(np.clip(g, 0, 255).astype(np.uint8).astype(np.float32))
+        depth.append(d)
+        masks.append(ids == mover)
+    g_dev, d_dev, m_dev = _to_dev(np.stack(gray), np.stack(depth), np.stack(masks))
+    return g_dev, d_dev, m_dev, poses
+
+
+def dynamics_phase(fmn, seq) -> int:
+    """Phase 6 (see the module docstring) on ``seq`` (mover_sequence of
+    DYN_FRAMES + DYN_W frames). Returns the FAST launches of its runs."""
     from torch.profiler import ProfilerActivity, profile
 
     from amos_slam_tpu_torch.config import DynamicsConfig
@@ -416,17 +463,8 @@ def dynamics_phase(fmn) -> int:
           f"dominant-mover two-stage+seg ATE {d_seg:.4f} vs baseline {d_off:.4f}")
 
     # 6.3 the full-width run: the flagship's split without a segmenter
-    n = DYN_FRAMES + DYN_W
-    fposes = synthetic.orbit_trajectory(n, radius=0.1, advance=n / 768)
-    gray, depth, masks = [], [], []
-    for i, T in enumerate(fposes):
-        planes, mover = synthetic.room_with_mover(seed=1, t=i / 30.0, speed=1.5)
-        g, d, ids = synthetic.render(planes, T, return_ids=True)
-        gray.append(np.clip(g, 0, 255).astype(np.uint8).astype(np.float32))
-        depth.append(d)
-        masks.append(ids == mover)
-    g_dev, d_dev, m_dev = _to_dev(np.stack(gray), np.stack(depth), np.stack(masks))
-    stamps = [i / 30.0 for i in range(n)]
+    g_dev, d_dev, m_dev, fposes = seq
+    stamps = [i / 30.0 for i in range(len(fposes))]
     slam = System(SystemConfig(use_dynamics=True, dynamics=DynamicsConfig(dyn_stride=2)))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -530,6 +568,205 @@ def dynamics_phase(fmn) -> int:
     check(slam.state is TrackingState.OK, f"dynamics state {slam.state.name}")
     check(slam.map.n_kfs >= 3, f"{slam.map.n_kfs} keyframes with dynamics")
     return phase_launches
+
+
+def count_flops(seg, rgbs) -> dict:
+    """The operations of one ``person_mask_batch(rgbs)``, counted from the
+    shapes by forward hooks: 2 x the multiply-adds of every conv (bf16 on
+    the tensor cores), by top-level module, and of the f32 resize products
+    (``models.yolact.Resize``: the input, the FPN's upsampling, ProtoNet's
+    x2, the output mask)."""
+    from amos_slam_tpu_torch.models.yolact import Resize
+
+    flops = {}
+
+    def add(part, n):
+        flops[part] = flops.get(part, 0) + n
+
+    def conv_hook(mod, args, out, part):
+        add(part, 2 * mod.in_channels // mod.groups * mod.kernel_size[0] * mod.kernel_size[1]
+            * out.numel())
+
+    def resize_hook(mod, args, out):
+        x, (oh, ow) = args
+        lead, (h, w) = x.numel() // (x.shape[-2] * x.shape[-1]), x.shape[-2:]
+        first, second = (oh * h * w, oh * w * ow) if mod.h_first else (h * w * ow, oh * h * ow)
+        add("resize_f32", 2 * lead * (first + second))
+
+    hooks = []
+    for name, m in seg.model.named_modules():
+        if isinstance(m, torch.nn.Conv2d):
+            hooks.append(m.register_forward_hook(
+                lambda mod, a, o, part=name.split(".")[0]: conv_hook(mod, a, o, part)))
+    for m in list(seg.model.modules()) + [seg._resize_in, seg._resize_out]:
+        if isinstance(m, Resize):
+            hooks.append(m.register_forward_hook(resize_hook))
+    try:
+        seg.person_mask_batch(rgbs)
+    finally:
+        for h in hooks:
+            h.remove()
+    return flops
+
+
+def segmenter_alone(seg, fn, rgbs, label: str) -> dict:
+    """Per-call time, device time and launches of ``fn`` (one call of the
+    segmenter on ``rgbs``), and its FLOPs and their bound."""
+    flops = count_flops(seg, rgbs if rgbs.dim() == 4 else rgbs[None])
+    conv = sum(v for k, v in flops.items() if k != "resize_f32")
+    return {
+        "call": label, "input": list(rgbs.shape), "img_size": seg.img_size,
+        "event_ms_per_call": _event_ms(fn), **_profiled_call(fn),
+        "gflop_by_part": {k: v / 1e9 for k, v in flops.items()},
+        "conv_gflop_per_image": conv / 1e9 / (rgbs.shape[0] if rgbs.dim() == 4 else 1),
+        "bound_ms": conv / BF16_PEAK_FLOP_S * 1e3, "bound_by": "operations",
+        "bound_peak": "989 TFLOP/s dense bf16 (H100 SXM data sheet), convs only",
+        "resize_f32_ms_at_67_tflops": flops.get("resize_f32", 0) / 67e12 * 1e3,
+    }
+
+
+def flagship_phase(fmn, seq) -> int:
+    """Phase 7 (see the module docstring) on ``seq`` (phase 6's
+    mover_sequence). Returns the FAST launches of its runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from amos_slam_tpu_torch.config import DynamicsConfig
+    from amos_slam_tpu_torch.models.segmenter import Segmenter
+    from amos_slam_tpu_torch.system import System, TrackingState
+
+    g_dev, d_dev, _, fposes = seq
+    rgb = g_dev[..., None].expand(-1, -1, -1, 3)     # grey replicated, as bench.py
+    launches0 = fmn.launches
+
+    # 7.2 first: the weights (Flax's init, seed 0, drawn on the host) and
+    # the mask content on the card against the CPU
+    kw = dict(person_classes=tuple(range(80)), score_th=0.0, img_size=400)
+    t = time.perf_counter()
+    cpu32 = Segmenter(compute_dtype=torch.float32, device="cpu",
+                      generator=torch.Generator().manual_seed(0), **kw)
+    sd = cpu32.model.state_dict()
+    init_s = time.perf_counter() - t
+    card32 = Segmenter(sd, compute_dtype=torch.float32, **kw)
+    card16 = Segmenter(sd, **kw)
+    two = rgb[10:12]
+    raw_cpu = cpu32.raw(two.cpu())
+    raw32, raw16 = card32.raw(two), card16.raw(two)
+    names = ("loc", "conf", "coef", "proto")
+    f32_err = {n: float((a.cpu() - b).abs().max() / b.abs().max())
+               for n, a, b in zip(names, raw32, raw_cpu)}
+    bf16_err = {n: (float((a - b).abs().max() / b.abs().max()), float((a - b).norm() / b.norm()))
+                for n, a, b in zip(names, raw16, raw32)}
+    m_cpu = cpu32.person_mask_batch(two.cpu())
+    m32, m16 = card32.person_mask_batch(two).cpu(), card16.person_mask_batch(two).cpu()
+    agree32 = [float((a == b).float().mean()) for a, b in zip(m32, m_cpu)]
+    agree16 = [float((a == b).float().mean()) for a, b in zip(m16, m32)]
+    cover = [float(m.float().mean()) for m in m32]
+    print(json.dumps({
+        "flagship_mask_content": "person_classes=range(80), score_th=0.0, img_size 400, "
+                                 "frames 10-11, grey as RGB",
+        "weights_init_s_cpu": init_s,
+        "card_f32_vs_cpu_f32_max_err": f32_err, "card_f32_vs_cpu_f32_mask_agreement": agree32,
+        "card_f32_mask_coverage": cover,
+        "card_bf16_vs_card_f32_max_rms_err": bf16_err,
+        "card_bf16_vs_card_f32_mask_agreement": agree16,
+        "card_bf16_mask_coverage": [float(m.float().mean()) for m in m16],
+    }))
+    check(max(f32_err.values()) < CARD_VS_CPU_F32, f"card f32 net vs CPU {f32_err}")
+    check(min(agree32) >= 0.999, f"card f32 masks vs CPU agree {agree32}")
+    check(all(0.01 < c < 0.99 for c in cover), f"mask coverage {cover}")
+    check(all(e[0] < BF16_VS_F32[0] and e[1] < BF16_VS_F32[1] for e in bf16_err.values()),
+          f"card bf16 vs f32 {bf16_err}")
+    del cpu32, card32, card16
+
+    # 7.1 the segmenter alone, at the flagship's and the default size
+    seg = Segmenter(sd, img_size=400)
+    seg550 = Segmenter(sd)
+    chunk = rgb[:SEG_W]
+    alone = [
+        segmenter_alone(seg, lambda: seg.person_mask_batch(chunk), chunk,
+                        "Segmenter(img_size=400).person_mask_batch"),
+        segmenter_alone(seg550, lambda: seg550.person_mask(rgb[0]), rgb[0],
+                        "Segmenter().person_mask"),
+    ]
+    print(json.dumps({"segmenter_alone": alone, "card": timing.smi("name,power.limit")}))
+    del seg550
+
+    # 7.3 the flagship end to end, as bench.py phase_two_stage
+    calls = [0]
+    person_mask_batch = seg.person_mask_batch
+
+    def counted(x):
+        calls[0] += 1
+        return person_mask_batch(x)
+
+    seg.person_mask_batch = counted
+    n = SEG_CHUNKS * SEG_W
+    stamps = [i / 30.0 for i in range(n + SEG_W)]
+    slam = System(SystemConfig(dynamics=DynamicsConfig(dyn_stride=2)))
+    torch.cuda.synchronize()
+    launches1 = fmn.launches
+    chunk_ms, all_masks = [], []
+    t0 = time.perf_counter()
+    masks = seg.person_mask_batch(rgb[:SEG_W])
+    for c in range(0, n, SEG_W):
+        t = time.perf_counter()
+        nxt = seg.person_mask_batch(rgb[c + SEG_W: c + 2 * SEG_W]) if c + SEG_W < n else None
+        slam.track_rgbd_chunk(g_dev[c: c + SEG_W], d_dev[c: c + SEG_W], stamps[c: c + SEG_W],
+                              seg_masks=masks)
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t) * 1e3)
+        all_masks.append(masks)
+        masks = nxt
+    run_ms = (time.perf_counter() - t0) * 1e3
+    run_launches, run_calls = fmn.launches - launches1, calls[0]
+    coverage = float(torch.stack(all_masks).float().mean())
+    est = np.asarray(slam.corrected_poses_np())
+    gt = np.asarray(fposes[:n])
+    check(bool(np.isfinite(est).all()) and est.shape == (n, 4, 4),
+          f"flagship trajectory not finite or of shape {est.shape}")
+    ate = evaluate.ate_rmse(evaluate.positions_from_cw(est), evaluate.positions_from_cw(gt))
+    rpe_t, rpe_r = evaluate.rpe(est, gt)
+    inliers = [s["inliers"] for s in slam.stats[1:]]
+
+    # one more chunk, segmenter included, under the profiler
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        m = seg.person_mask_batch(rgb[n: n + SEG_W])
+        slam.track_rgbd_chunk(g_dev[n: n + SEG_W], d_dev[n: n + SEG_W], stamps[n:], seg_masks=m)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    prof_out = device_profile(prof, SEG_W)
+    seg_dev, seg_host = alone[0]["device_kernel_ms"], alone[0]["event_ms_per_call"]
+    print(json.dumps({
+        "flagship": "Segmenter(img_size=400) bf16 -> System(SystemConfig(dynamics="
+                    "DynamicsConfig(dyn_stride=2))).track_rgbd_chunk, 640x480 defaults",
+        "frames": n, "chunk_w": SEG_W, "segmenter_calls": run_calls,
+        "ate_m": ate, "rpe_t_m": rpe_t, "rpe_r_rad": rpe_r,
+        "min_inliers": min(inliers), "state": slam.state.name, "keyframes": slam.map.n_kfs,
+        "ms_per_frame": run_ms / n, "chunk_ms": chunk_ms,
+        "chunk_ms_per_frame_median": statistics.median(chunk_ms) / SEG_W,
+        "mask_coverage": coverage,
+        "mask_coverage_note": "random weights, 81 classes, score 0.15: empty masks expected",
+        "fast_kernel_launches": run_launches,
+        "profiled_chunk_wall_ms_per_frame": wall_ms / SEG_W,
+        "device_busy_share_profiled": prof_out["device_kernel_ms_per_frame"] / (wall_ms / SEG_W),
+        "segmenter_device_ms_share": seg_dev / SEG_W / prof_out["device_kernel_ms_per_frame"],
+        "segmenter_launch_share": alone[0]["launches"] / SEG_W
+        / prof_out["kernel_launches_per_frame"],
+        "segmenter_host_ms_share": seg_host / SEG_W / (run_ms / n),
+        **prof_out,
+    }))
+    if coverage == 0.0:
+        print("flagship: the masks are empty, as random weights at 81 classes and score "
+              "0.15 make them; the cost is that of trained weights, the content is not")
+    check(run_calls == SEG_CHUNKS, f"{run_calls} segmenter calls in {SEG_CHUNKS} chunks")
+    check(run_launches == n, f"{fmn_mod.NAME} launched {run_launches} times in {n} flagship frames")
+    check(ate < 0.03, f"flagship ATE {ate:.4f} m")
+    check(rpe_t < 0.01, f"flagship RPE-t {rpe_t:.4f} m")
+    check(min(inliers) > 50, f"flagship min inliers {min(inliers)}")
+    check(slam.state is TrackingState.OK, f"flagship state {slam.state.name}")
+    check(slam.map.n_kfs >= 3, f"{slam.map.n_kfs} flagship keyframes")
+    return fmn.launches - launches0
 
 
 def main() -> int:
@@ -660,15 +897,20 @@ def main() -> int:
     # 5. the system path
     sys_launches = system_phase(fmn)
     # 6. the system path with the geometric dynamic stage
-    dyn_launches = dynamics_phase(fmn)
+    seq = mover_sequence(DYN_FRAMES + DYN_W)
+    dyn_launches = dynamics_phase(fmn, seq)
+    # 7. the flagship: the segmenter feeding the system with dynamics
+    flag_launches = flagship_phase(fmn, seq)
     print(json.dumps({"fast_kernel_launches": {"odometry": launches, "system": sys_launches,
-                                               "dynamics": dyn_launches}}))
+                                               "dynamics": dyn_launches,
+                                               "flagship": flag_launches}}))
 
     print(json.dumps({"kernels": [{
         "name": fmn_mod.NAME, "route": "cuda",
         "source": "amos_slam_tpu_torch/csrc/fast_margin_nms.cu",
         "replaces": "amos_slam_tpu/ops/pallas/fast_pallas.py:110",
-        "launches": launches + sys_launches + dyn_launches, "max_abs_err": max_err,
+        "launches": launches + sys_launches + dyn_launches + flag_launches,
+        "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,

@@ -43,6 +43,16 @@ MAP = dict(max_keyframes=32, max_points=8192)
 N_RUN = 18
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: these eager runs launch many small ops, and
+    tier-1 runs several test files side by side on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def jcfg(**kw):
     return JSys(camera=JCam(**CAM), orb=JORB(**ORB), map=JMap(**MAP),
                 tracking=JTrk(max_map_points_local=2048), use_dynamics=False, **kw)

@@ -22,6 +22,13 @@ and within 2 mm of each other; the carried gate levels within 2% (measured
 under poses that differ by microns to a millimetre; on identical inputs
 tests/test_torch_dynamics.py holds them to 1e-4) and the geometric mask
 equal on >= 99.5%.
+
+The slice end to end: each package's Segmenter (the full-depth 128-px net
+of tests/test_torch_segmenter.py, f32, identical weights) makes stage-one
+masks from the first 8 grey frames as RGB, and each package's System takes
+its own masks, per frame, with the JAX draws fed as above. Gates: masks
+>= 99.9% equal per frame and non-trivial, used_pnp equal,
+the same keyframes, poses within 5 mm / 0.2 deg.
 """
 
 import jax
@@ -36,10 +43,13 @@ from amos_slam_tpu.config import (CameraConfig as JCam, MapConfig as JMap,
                                   ORBConfig as JORB, SystemConfig as JSys,
                                   TrackingConfig as JTrk)
 from amos_slam_tpu.frontend import dynamics as jdyn
+from amos_slam_tpu.models.port_torch import port_state_dict
+from amos_slam_tpu.models.segmenter import Segmenter as JSegmenter
 from amos_slam_tpu_torch.config import (CameraConfig as TCam, MapConfig as TMap,
                                         ORBConfig as TORB, SystemConfig as TSys,
                                         TrackingConfig as TTrk)
 from amos_slam_tpu_torch.io import evaluate, synthetic
+from amos_slam_tpu_torch.models.segmenter import Segmenter
 from amos_slam_tpu_torch.system import System
 
 CAM = dict(fx=535.4 / 2, fy=539.2 / 2, cx=320.1 / 2, cy=247.6 / 2, width=320, height=240)
@@ -88,13 +98,12 @@ STATIC = ("n_clusters", "slic_cell", "slic_iters", "dilate_radius", "has_seg",
           "lk_downsample")
 
 
-@pytest.fixture(scope="module")
-def runs(sequence):
-    """Both Systems over the parity frames. The JAX System's
-    compute_dynamics is traced afresh with ransac_pnp wrapped to report its
-    draw; the port's compute_dynamics is wrapped to take that draw as
-    ``pnp_sample_idx``. Both record ``used_pnp`` per call."""
-    _, frames = sequence
+def run_pair(frames, n, masks=(None, None)):
+    """Both Systems over frames[:n], per frame, each with its own stage-one
+    masks (JAX's, the port's) if given. The JAX System's compute_dynamics
+    is traced afresh with ransac_pnp wrapped to report its draw; the port's
+    compute_dynamics is wrapped to take that draw as ``pnp_sample_idx``.
+    Both record ``used_pnp`` per call."""
     draws, used = [], {"jax": [], "port": []}
     orig_pnp, orig_j, orig_t = jdyn.ransac_pnp, jsys_mod.compute_dynamics, tsys_mod.compute_dynamics
 
@@ -124,18 +133,25 @@ def runs(sequence):
 
     jdyn.ransac_pnp, jsys_mod.compute_dynamics, tsys_mod.compute_dynamics = (
         recording_pnp, jax_dyn, port_dyn)
+    jm, tm = masks
     try:
         js = jsys_mod.System(jcfg(use_dynamics=True, deterministic=True))
         ts = System(tcfg(deterministic=True), device="cpu")
-        for i, (g, d, _, _) in enumerate(frames[:N_PARITY]):
-            js.track_rgbd(g, d, i / 30.0)
-            ts.track_rgbd(g, d, i / 30.0)
+        for i, (g, d, _, _) in enumerate(frames[:n]):
+            js.track_rgbd(g, d, i / 30.0, seg_mask=None if jm is None else jm[i])
+            ts.track_rgbd(g, d, i / 30.0, seg_mask=None if tm is None else tm[i])
         js.shutdown()
         ts.shutdown()
     finally:
         jdyn.ransac_pnp, jsys_mod.compute_dynamics, tsys_mod.compute_dynamics = (
             orig_pnp, orig_j, orig_t)
     return js, ts, {k: [bool(np.asarray(u)) for u in v] for k, v in used.items()}
+
+
+@pytest.fixture(scope="module")
+def runs(sequence):
+    _, frames = sequence
+    return run_pair(frames, N_PARITY)
 
 
 def ate(est, poses):
@@ -170,3 +186,41 @@ def test_system_with_dynamics_matches_jax(runs, sequence):
     np.testing.assert_allclose(ts._dyn_gates.numpy(), np.asarray(js._dyn_gates), rtol=2e-2,
                                atol=1e-4)
     assert (ts._dyn_mask.numpy() == np.asarray(js._dyn_mask)).mean() >= 0.995
+
+
+N_SEG = 8
+
+
+@pytest.fixture(scope="module")
+def seg_runs(sequence):
+    """The slice end to end: each package's Segmenter (the full-depth 128-px
+    net of tests/test_torch_segmenter.py, f32, the port's seeded random
+    weights carried to JAX) turns the grey frames, replicated to RGB, into
+    stage-one masks that its own System takes, per frame."""
+    _, frames = sequence
+    kw = dict(num_classes=5, person_classes=(0, 1, 2, 3), score_th=0.0, img_size=128)
+    ts = Segmenter(compute_dtype=torch.float32, device="cpu", **kw)
+    js = JSegmenter(port_state_dict(ts.model.state_dict()), compute_dtype=jnp.float32, **kw)
+    rgbs = np.stack([np.repeat(np.clip(g, 0, 255).astype(np.uint8)[..., None], 3, axis=-1)
+                     for g, _, _, _ in frames[:N_SEG]])
+    masks = (np.asarray(js.person_mask_batch(rgbs)), ts.person_mask_batch(rgbs))
+    return masks, run_pair(frames, N_SEG, masks)
+
+
+def test_segmenter_fed_system_matches_jax(seg_runs):
+    (jm, tm), (js, ts, used) = seg_runs
+    tm = tm.numpy()
+    assert tm.shape == jm.shape == (N_SEG, 240, 320) and tm.dtype == bool
+    for j, t in zip(jm, tm):
+        assert (j == t).mean() >= 0.999
+    assert 0.01 < tm.mean() < 0.99
+    assert used["port"] == used["jax"]
+    mj, mt = js.map, ts.map
+    np.testing.assert_array_equal(mt.kf_frame_id[: mt.n_kfs], mj.kf_frame_id[: mj.n_kfs])
+    pj, pt = np.asarray(js.poses_np()), np.asarray(ts.poses_np())
+    assert pt.shape == pj.shape == (N_SEG, 4, 4)
+    dpos = np.linalg.norm(evaluate.positions_from_cw(pj) - evaluate.positions_from_cw(pt), axis=1)
+    assert dpos.max() < 5e-3, dpos
+    rel = np.einsum("nij,nkj->nik", pj[:, :3, :3], pt[:, :3, :3])
+    cos = np.clip((np.trace(rel, axis1=1, axis2=2) - 1) / 2, -1, 1)
+    assert np.degrees(np.arccos(cos)).max() < 0.2

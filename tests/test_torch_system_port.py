@@ -50,6 +50,16 @@ def run(c, frames):
     return slam
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: these eager runs launch many small ops, and
+    tier-1 runs several test files side by side on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def orbit():
     poses = synthetic.orbit_trajectory(20, radius=0.15, advance=0.3)

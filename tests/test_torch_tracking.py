@@ -41,6 +41,16 @@ ORB = dict(n_features=500, n_levels=4, max_kpts=512)
 N_FRAMES = 8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: these eager runs launch many small ops, and
+    tier-1 runs several test files side by side on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 
