@@ -9,12 +9,15 @@ card unless the caller passes ``device="cpu"``.
 
 Subpackages (ported so far)
 ---------------------------
-geometry   SE3 Lie group, pinhole camera.
-solvers    Robust weights, pose optimization, local BA, PnP, epipolar distance.
+geometry   SE3 and Sim3 Lie groups, pinhole camera.
+solvers    Robust weights, pose optimization, local BA, PnP, epipolar distance,
+           Sim3 RANSAC and refinement, pose graph, structure-only refits.
 ops        Pyramid, FAST-9, rBRIEF, Hamming matching; kernels/ holds the
            CUDA kernel wrappers.
 frontend   ORB extraction pipeline, tracking, the geometric dynamic stage.
 slam_map   Map state, local-map tracking, triangulation, maintenance.
+loop       BoW vocabulary, keyframe database, loop closing, relocalization,
+           global BA (data/default_vocab.npz is the default vocabulary).
 models     YOLACT stage one: ResNet-FPN, ProtoNet, fast-NMS, Segmenter.
 io         Synthetic scenes, trajectory IO, ATE/RPE evaluation.
 tools      Timing tools for the card.

@@ -6,7 +6,8 @@ names and fields, holding tensors. These helpers turn one into the other
 through numpy, so a test can feed both packages identical state; this module
 never imports jax (``np.asarray`` reads a jax array). :func:`slam_map_from`
 carries a whole map across, device arrays and host mirrors;
-:func:`yolact_state_dict` carries YOLACT weights.
+:func:`vocabulary_from` a BoW vocabulary; :func:`yolact_state_dict` YOLACT
+weights.
 """
 
 from __future__ import annotations
@@ -81,7 +82,26 @@ def slam_map_from(src, cfg, cam: Camera, device):
     m.uid_cull = {int(u): (int(p), tensor(T)) for u, (p, T) in src.uid_cull.items()}
     m.loop_edges = [(int(i), int(j), np.array(T), float(s))
                     for (i, j, T, s) in src.loop_edges]
+    m.culled_log = [int(k) for k in src.culled_log]
     return m
+
+
+def vocabulary_from(src, device=None):
+    """The port's :class:`~.loop.vocabulary.Vocabulary` holding the same
+    tree as ``src``, a JAX-package Vocabulary (read duck-typed), on
+    ``device`` (the CUDA card by default)."""
+    from .device import resolve_device
+    from .loop.vocabulary import Vocabulary
+
+    device = resolve_device(device)
+
+    return Vocabulary(
+        k=int(src.k), depth=int(src.depth),
+        levels=tuple(torch.from_numpy(np.array(l, np.int8)).to(device) for l in src.levels),
+        node_valid=tuple(torch.from_numpy(np.array(v, bool)).to(device)
+                         for v in src.node_valid),
+        idf=torch.from_numpy(np.array(src.idf, np.float32)).to(device),
+    )
 
 
 def yolact_state_dict(flax_params) -> dict:

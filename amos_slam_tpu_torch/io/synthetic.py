@@ -281,3 +281,56 @@ def orbit_trajectory(n_frames: int, radius=0.25, advance=0.4, yaw_amp=0.06):
         Twc[:3, 3] = [tx, ty, tz]
         poses.append(np.linalg.inv(Twc))
     return poses
+
+
+def out_and_back(n_out: int, radius=0.25, advance=0.4, yaw_amp=0.06):
+    """Loop-closing fixture: ``orbit_trajectory(n_out, ...)`` forward, then
+    reversed, then the start revisited (tests/test_loop_pipeline.py:31-34).
+    Returns 2 * n_out + 2 poses."""
+    fwd = orbit_trajectory(n_out, radius=radius, advance=advance, yaw_amp=yaw_amp)
+    return fwd + fwd[::-1][1:] + [fwd[0], fwd[1], fwd[0]]
+
+
+def sweep_and_return(n_sweep: int, n_over: int, n_tail: int, yaw=1.4, pitch=1.2,
+                     x0=0.0, z0=1.5, sway=0.1):
+    """Loop-closing fixture in ``default_room``: from (x0, 0, z0) the camera
+    sweeps its yaw from the left wall (-yaw) across the back wall to the
+    right wall (+yaw) in ``n_sweep`` frames, comes back to the left wall over
+    the ceiling (pitched up by ``pitch`` at mid-way) in ``n_over`` frames,
+    then repeats the first ``n_tail`` frames of the sweep; ``sway`` m of
+    translation gives parallax. The way back sees only the ceiling, so the
+    tracker meets the start's wall with landmarks of its own and the loop
+    closer, not the local map, has to join them (an out-and-back re-finds
+    the way out's landmarks all the way home). Returns Tcw poses."""
+    from scipy.spatial.transform import Rotation as _R
+
+    def tcw(x, z, yw, p):
+        Twc = np.eye(4)
+        Twc[:3, :3] = _R.from_euler("yxz", [yw, p, 0.0]).as_matrix()
+        Twc[:3, 3] = [x, 0.0, z]
+        return np.linalg.inv(Twc)
+
+    ease = lambda u: (1.0 - np.cos(np.pi * u)) / 2.0   # noqa: E731
+    poses = []
+    for i in range(n_sweep):
+        u = i / n_sweep
+        poses.append(tcw(x0 + sway * np.sin(np.pi * u), z0, yaw * (2 * ease(u) - 1), 0.0))
+    for i in range(n_over):
+        u = i / n_over
+        s = np.sin(np.pi * u)
+        poses.append(tcw(x0 + sway * s, z0 - sway * s, yaw * (1 - 2 * ease(u)), pitch * s))
+    return poses + poses[:n_tail]
+
+
+def render_many(planes: List[Plane], poses, workers: int = 1, **kw):
+    """(gray, depth) of every pose, rendered by ``workers`` spawned
+    processes (the caller may hold CUDA state and threads: no fork)."""
+    if workers <= 1:
+        return [render(planes, T, **kw) for T in poses]
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from functools import partial
+
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        return list(ex.map(partial(render, planes, **kw), poses,
+                           chunksize=max(1, len(poses) // (4 * workers))))

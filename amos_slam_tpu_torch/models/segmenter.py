@@ -54,10 +54,11 @@ class Segmenter:
     """
 
     def __init__(self, params: Optional[Dict[str, torch.Tensor]] = None,
+                 generator: Optional[torch.Generator] = None,
                  num_classes: int = 81, person_classes: Tuple[int, ...] = (0,),
                  score_th: float = 0.15, top_k: int = 15,
                  compute_dtype: torch.dtype = torch.bfloat16, img_size: int = IMG_SIZE,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 *, device=None):
         self.device = resolve_device(device)
         self.score_th = score_th
         self.top_k = top_k

@@ -360,14 +360,17 @@ class SlamMap:
         self.pt_obs_count = np.zeros(self.M, np.int32)
         self.pt_birth_kf = np.full(self.M, -1, np.int32)
         self.pt_alive = np.zeros(self.M, bool)
+        # slots culled since the last drain: the loop closer erases them
+        # from its BoW database on its next keyframe tick
+        self.culled_log: list = []
         # spanning tree (KeyFrame::mpParent, src/KeyFrame.cc:599-700): each
         # keyframe's parent is its strongest-covisibility predecessor;
         # culling reparents children, so the tree stays connected
         self.kf_parent = np.full(self.K, -1, np.int64)
         # loop edges (KeyFrame::AddLoopEdge): (slot_i, slot_j, T_rel, s_rel)
-        # per accepted loop closure; their endpoints are protected from
-        # culling (the reference's mbNotErase). Loop closing is not ported
-        # yet (ROADMAP queue 1 item 9), so the list stays empty.
+        # per accepted loop closure, kept in every later essential graph;
+        # their endpoints are protected from culling (the reference's
+        # mbNotErase)
         self.loop_edges: list = []
         # Stable keyframe uids for trajectory replay (slots are reused after
         # compaction): uid_cull[uid] = (parent_uid, Tcp) recorded when the
@@ -587,7 +590,12 @@ class SlamMap:
         self.covis[:, kf] = 0
         self.kf_alive[kf] = False
         self.kf_parent[kf] = -1
+        self.culled_log.append(kf)
         self.arrays = _remove_kf_kernel(self.arrays, kf)
+
+    def drain_culled(self) -> list:
+        out, self.culled_log = self.culled_log, []
+        return out
 
     def grow_keyframes(self):
         """Double keyframe capacity: the escape hatch when the map is full
@@ -671,6 +679,7 @@ class SlamMap:
             for (i, j, T, s) in self.loop_edges
             if lut[i] >= 0 and lut[j] >= 0
         ]
+        self.culled_log = []   # stale slot ids mean nothing after compaction
         self.n_kfs = A
         self.version += 1
         return lut

@@ -32,16 +32,24 @@ of the chunk, a device tensor used without a copy) is dilated by
 ``mask_dilate_radius`` and joins it, also with ``use_dynamics=False``.
 ``rgb`` / ``rgbs`` make SLIC cluster in CIELAB.
 
+Loop closing and relocalization (``loop.loop_closing.LoopCloser``, built
+at the first keyframe with the given vocabulary or the package's
+``data/default_vocab.npz``): every keyframe's BoW transform comes home in
+the same read as its triangulation table; a verified loop corrects the map
+(pose graph, landmark re-anchoring, fusion across the loop), rebases the
+tracker by the keyframe's correction and starts a global BA that advances
+one phase per keyframe; a LOST slow-path frame relocalizes against the
+keyframe database.
+
 Not ported yet, and each raises ``NotImplementedError`` naming the ROADMAP
-item (queue 1) that brings it: loop closing / relocalization / a
-vocabulary / global refinement (9), stereo and monocular tracking (10),
-map save/load (11). Without a loop closer, a LOST frame holds the last
-pose, as the JAX package does without one.
+item (queue 1) that brings it: stereo and monocular tracking (10), map
+save/load and per-frame debug overlays (11).
 """
 
 from __future__ import annotations
 
 import enum
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -60,6 +68,10 @@ from .frontend.tracking import (
 )
 from .geometry import se3
 from .io import trajectory
+from .loop.global_ba import GlobalBundleAdjustment, run_global_refinement
+from .loop.loop_closing import LoopCloser
+from .loop.vocab_io import load_npz
+from .loop.vocabulary import train_vocabulary
 from .ops.slic import dilate_mask
 from .slam_map.slam_map import SlamMap, track_local_map
 
@@ -90,22 +102,30 @@ class System:
             Tcw = slam.track_rgbd(gray, depth, t)   # seg_mask=, rgb= optional
         slam.save_trajectory_tum("CameraTrajectory.txt")
 
+    ``vocabulary``: a :class:`~.loop.vocabulary.Vocabulary` for place
+    recognition (``loop.vocab_io`` loads .npz and ORBvoc.txt files,
+    ``convert.vocabulary_from`` a JAX one); the package's default otherwise.
     ``device`` defaults to the CUDA card and raises without one; pass
     ``device="cpu"`` for the plain path.
     """
 
-    def __init__(self, cfg: Optional[SystemConfig] = None, device=None,
-                 vocabulary=None):
+    def __init__(self, cfg: Optional[SystemConfig] = None, vocabulary=None,
+                 debug_dir: Optional[str] = None, *, device=None):
         self.cfg = cfg or SystemConfig()
-        if vocabulary is not None:
-            raise _not_ported("place recognition (vocabulary)", 9)
+        if debug_dir is not None:
+            raise _not_ported("per-frame debug overlays", 11)
         if self.cfg.sensor != "rgbd":
             raise _not_ported(f"the {self.cfg.sensor} sensor", 10)
         self.device = resolve_device(device)
         self.pipeline = ORBPipeline(self.cfg.orb, self.cfg.camera, self.device)
         self.cam = self.pipeline.cam
         self.map = SlamMap(self.cfg, self.cam, self.device)
-        self.loop = None   # loop closing: ROADMAP queue 1 item 9
+        # place recognition: built at the first keyframe (_ensure_loop_closer)
+        self._vocabulary = vocabulary
+        self.loop: Optional[LoopCloser] = None
+        # a slow-path keyframe's maintenance runs after its frame is
+        # recorded, as the JAX package's continuation does
+        self._deferred_kf: Optional[int] = None
 
         self.state = TrackingState.NOT_INITIALIZED
         self.last_feats: Optional[FrameFeatures] = None
@@ -281,7 +301,11 @@ class System:
             Tcw = self._initialize(feats)
         else:
             Tcw = self._track(feats)
-        return self._finish_frame(feats, Tcw, g, d, timestamp)
+        Tcw = self._finish_frame(feats, Tcw, g, d, timestamp)
+        if self._deferred_kf is not None:
+            slot, self._deferred_kf = self._deferred_kf, None
+            self._keyframe_maintenance(slot)
+        return Tcw
 
     def _extract_with_dynamics(self, g, d, seg, rgb=None) -> FrameFeatures:
         """The Amos split on the slow path: keypoints -> dynamic mask ->
@@ -440,7 +464,9 @@ class System:
         keyframe resolves through its cull-time spanning-tree relative pose
         (KeyFrame::mTcp, src/System.cc:468-476). Frames whose reference
         cannot be resolved (before initialization, or before a reset) keep
-        their raw pose."""
+        their raw pose. An in-flight global BA is drained first."""
+        if self.loop is not None:
+            self.loop.flush_gba()
         raw, refs = self._frame_poses_refs()
         m = self.map
         cull_keys = list(m.uid_cull)
@@ -486,7 +512,10 @@ class System:
         trajectory.save_kitti(path, self.corrected_poses_np())
 
     def save_keyframe_trajectory_tum(self, path: str):
-        """Keyframe poses only (SaveKeyFrameTrajectoryTUM, src/System.cc:484)."""
+        """Keyframe poses only (SaveKeyFrameTrajectoryTUM, src/System.cc:484),
+        after an in-flight global BA is drained."""
+        if self.loop is not None:
+            self.loop.flush_gba()
         m = self.map
         kf_poses = m.arrays.kf_pose[: m.n_kfs].cpu().numpy().astype(np.float64)
         poses, stamps = [], []
@@ -506,7 +535,15 @@ class System:
         raise _not_ported("map checkpoints (load_map)", 11)
 
     def global_refine(self):
-        raise _not_ported("global bundle adjustment", 9)
+        """Full-map refinement (the reference's global BA): a pose-graph +
+        structure-only pass that carries gross corrections, then the joint
+        camera + structure LM over all keyframes."""
+        self._flush_stats()
+        if self.loop is not None:
+            self.loop.flush_gba()
+        run_global_refinement(self.map)
+        if self.map.n_kfs >= 3:
+            GlobalBundleAdjustment(self.map).run()
 
     def activate_localization_mode(self):
         """Track against the existing map without extending it (reference
@@ -527,6 +564,8 @@ class System:
         # before the reset never alias new keyframes (they fall back to raw
         # poses in corrected_poses_np)
         self.map.kf_uid_next = uid_next
+        self.loop = None
+        self._deferred_kf = None
         self.state = TrackingState.NOT_INITIALIZED
         self.last_feats = None
         self.last_Tcw = self._eye
@@ -540,8 +579,11 @@ class System:
         self._clear_dynamics()
 
     def shutdown(self):
-        """Apply pending counters and wait for the device."""
+        """Apply pending counters, drain an in-flight global BA and wait for
+        the device."""
         self._flush_stats()
+        if self.loop is not None:
+            self.loop.flush_gba()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -622,17 +664,38 @@ class System:
             self.ref_kf = int(lut[self.ref_kf])
         else:
             self.ref_kf = self.map.n_kfs - 1
+        if self.loop is not None:
+            self.loop.remap_slots(lut)
 
     # ------------------------------------------------- keyframe maintenance
     def _keyframe_maintenance(self, slot: int):
-        """Post-insertion maintenance for keyframe ``slot``: triangulation,
-        then (on a cadence) fusion + culling + landmark refresh, then local
-        BA -- the reference's LocalMapping order (CreateNewMapPoints ->
+        """Post-insertion maintenance for keyframe ``slot``: triangulation
+        and the loop closer's BoW transform (their two tables come home in
+        one read), loop detection and correction, then (on a cadence)
+        fusion + culling + landmark refresh, then local BA -- the
+        reference's LocalMapping order (CreateNewMapPoints ->
         SearchInNeighbors -> local BA -> KeyFrameCulling,
-        src/LocalMapping.cc:73)."""
+        src/LocalMapping.cc:73) with LoopClosing fed in between."""
         disp = self.map.create_new_points_dispatch(slot)
-        if disp is not None:
-            self.map.create_new_points_resolve(slot, disp, disp["packed"].cpu().numpy())
+        bow = self.loop.bow_dispatch(slot) if self.loop is not None else None
+        parts = [] if disp is None else [disp["packed"].reshape(-1)]
+        if bow is not None:
+            # the (2, N) f32 [word, weight] rows travel as their int32 bits
+            parts.append(bow.reshape(-1).view(torch.int32))
+            T_old = self.map.arrays.kf_pose[slot].clone()   # a view would follow
+        if parts:
+            host = torch.cat(parts).cpu().numpy()
+            n = 0 if disp is None else disp["packed"].numel()
+            if disp is not None:
+                self.map.create_new_points_resolve(
+                    slot, disp, host[:n].reshape(disp["packed"].shape))
+            if bow is not None and self.loop.on_keyframe_resolve(
+                    slot, host[n:].view(np.float32).reshape(2, -1)):
+                # the map was corrected: rebase the tracker by the keyframe's
+                # correction (the relative motion since the keyframe, and so
+                # the velocity, stand)
+                T_new = self.map.arrays.kf_pose[slot]
+                self.last_Tcw = self.last_Tcw @ se3.inv_T(T_old) @ T_new
         self._post_triangulation(slot)
 
     def _post_triangulation(self, slot: int):
@@ -681,8 +744,27 @@ class System:
         self.last_kf_frame = self.frame_id
         self.last_kf_inliers = n_depth
         self.state = TrackingState.OK
+        self._ensure_loop_closer(feats)
+        self.loop.on_keyframe(self.ref_kf)
         self.stats.append({"matches": n_depth, "inliers": n_depth, "kf": True})
         return self._eye
+
+    def _ensure_loop_closer(self, feats: FrameFeatures):
+        """Build the loop closer at the first keyframe: with the given
+        vocabulary, else the package's default (trained on synthetic
+        scenes), else one trained on this frame's descriptors."""
+        if self.loop is not None:
+            return
+        if self._vocabulary is None:
+            default = os.path.join(os.path.dirname(__file__), "data", "default_vocab.npz")
+            if os.path.exists(default):
+                self._vocabulary = load_npz(default, device=self.device)
+            else:
+                desc = feats.desc[feats.valid].cpu().numpy()
+                self._vocabulary = train_vocabulary(desc, k=8, depth=3, iters=5,
+                                                    device=self.device)
+        self._vocabulary = self._vocabulary.to(self.device)
+        self.loop = LoopCloser(self.cfg, self.cam, self._vocabulary, self.map)
 
     def _track(self, feats: FrameFeatures) -> torch.Tensor:
         """The slow path (after LOST): two-pass motion model, then the local
@@ -702,9 +784,9 @@ class System:
             self.cam, feats, view, T0,
             torch.tensor(map_radius, dtype=torch.float32, device=self.device))
         mm_Tcw = T0 if n_mm >= 10 else None
-        return self._post_track(feats, n_mm, mm_Tcw, lm)
+        return self._post_track(feats, n_mm, mm_Tcw, lm, view)
 
-    def _post_track(self, feats, n_mm, mm_Tcw, lm) -> torch.Tensor:
+    def _post_track(self, feats, n_mm, mm_Tcw, lm, view) -> torch.Tensor:
         """Decision tail of the slow path."""
         tcfg = self.cfg.tracking
         n_lm = int(lm.num_inliers)
@@ -718,8 +800,22 @@ class System:
             kp_point = np.full(self.cfg.orb.max_kpts, -1, np.int64)
             self.state = TrackingState.OK
         else:
-            # LOST: without a loop closer there is no relocalization
-            # (Tracking::Relocalization, src/Tracking.cc:2591); hold the pose
+            # LOST: BoW relocalization (Tracking::Relocalization,
+            # src/Tracking.cc:2591), re-anchored to the local map from the
+            # relocalized pose; otherwise hold the pose
+            reloc = self.loop.relocalize(feats) if self.loop is not None else None
+            if reloc is not None and reloc[1] >= 25:
+                lm2 = track_local_map(
+                    self.cam, feats, view, torch.from_numpy(reloc[0]).to(self.device),
+                    torch.tensor(tcfg.match_radius_map * 3.0, dtype=torch.float32,
+                                 device=self.device))
+                n2 = int(lm2.num_inliers)
+                if n2 >= tcfg.min_inliers_local_map:
+                    self.state = TrackingState.OK
+                    self.velocity = self._eye
+                    self.stats.append({"matches": n_mm, "inliers": n2, "kf": False,
+                                       "reloc": True})
+                    return lm2.Tcw
             self._on_lost()
             self.velocity = self._eye
             self.stats.append({"matches": n_mm, "inliers": 0, "kf": False})
@@ -744,7 +840,7 @@ class System:
             self.ref_kf = self.map.insert_keyframe(feats, Tcw, kp_point, self.frame_id)
             self.last_kf_frame = self.frame_id
             self.last_kf_inliers = n_lm
-            self._keyframe_maintenance(self.ref_kf)
+            self._deferred_kf = self.ref_kf   # run once the frame is recorded
             made_kf = True
 
         self.stats.append({"matches": n_mm, "inliers": n_lm, "kf": made_kf})

@@ -86,6 +86,49 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 frame 0, state OK, >= 3 keyframes, one FAST launch per frame,
                 one segmenter call per chunk. Then one more chunk under
                 torch.profiler.
+  Phases 5-7 also read the loop closer that every System builds at its
+  first keyframe (LoopProbe): loops closed, relocalizations, each BoW
+  transform between CUDA events, keyframe maintenance with the BoW between
+  two syncs, and one BoW transform alone (10 calls between events, one
+  profiled for device time and launches). Their sequences close no loop.
+  8. loop -- loop closing and relocalization on the flagship, driven by
+                tools/loop_search.py (track() with LOOP = its PHASE8): the
+                phase-7 segmenter and System(SystemConfig(dynamics=
+                DynamicsConfig(dyn_stride=2))) at the defaults
+                (loop_consistency_th 3) over synthetic.sweep_and_return(40,
+                80, 40, yaw=0.7, pitch=1.1, sway=0.2) in default_room(seed=7),
+                160 frames in chunks of 8: the yaw sweeps from the left wall
+                across the back wall to the right wall, comes back over the
+                ceiling, and sweeps again. An out-and-back would re-find the
+                way out's landmarks all the way home, so its start stays
+                covisible and no loop is detected; coming home over the
+                ceiling, the tracker meets the start's wall with landmarks
+                of its own. Of 16 sweeps that tools/loop_search.py ran on the
+                card with this phase's config, 12 closed a loop, 2 of those
+                ended with the corrected ATE under the raw ATE, and this one
+                alone also under 3 cm (ROADMAP queue 3, fault 4). Three
+                frames at the start of the first chunk after the map holds 8
+                keyframes have zero grey and depth (tests/test_reloc_loop.py:
+                31-34); the motion model carries the chunk over them. Then
+                the kidnap: a chunk that holds the last pose for 5 frames and
+                goes black for 3 (it ends LOST), and two chunks back at the
+                sequence's first 16 poses, where the per-frame path's motion
+                model and local map fail and the relocalizer must place the
+                camera. Gates: >= 1 loop closed, state OK after the sequence
+                and at the end, ATE of corrected_poses_np over the sequence
+                < 3 cm and <= the raw track-time ATE + 0.1 mm (the blackout
+                and two frames after it left out), a kidnapped frame with
+                "reloc" in its stats, ATE < 3 cm over the sequence and the
+                frames from the first relocalized one on, no live
+                observation of a dead landmark, device kf_obs equal to the
+                host mirror, one FAST launch per frame. Prints the BoW ms per
+                keyframe, each _verify_and_correct in parts (pairs, Sim3
+                RANSAC, optimize_sim3, guided search, pose graph, fusion:
+                host ms between syncs, launches and device ms under
+                torch.profiler), each loop's keyframe ATE before and after
+                the pose graph, after its global BA and at the end of the
+                sequence, each global-BA phase's ms, the relocalizations' ms
+                and the ms per chunk with the loop chunks apart.
 The last three lines are the kernels JSON, the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}.
 """
@@ -93,6 +136,7 @@ The last three lines are the kernels JSON, the card's name and power limit
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import sys
 import time
@@ -107,6 +151,7 @@ from amos_slam_tpu_torch.ops import pyramid
 from amos_slam_tpu_torch.ops.kernels import build
 from amos_slam_tpu_torch.ops.kernels import fast_margin_nms as fmn_mod
 from amos_slam_tpu_torch.ops.kernels import timing
+from amos_slam_tpu_torch.tools import loop_search
 
 N_FRAMES = 30
 SYS_FRAMES = 128        # gated main run of the system phase
@@ -118,6 +163,7 @@ DYN_PER_FRAME = 32      # of which the first go through track_rgbd
 DYN_W = 8               # chunk width; one more chunk is profiled
 SEG_W = 8               # flagship chunk width, as bench.py
 SEG_CHUNKS = 8          # gated flagship chunks; one more is profiled
+LOOP = loop_search.PHASE8   # phase 8's sequence, blackout and kidnap
 CARD_VS_CPU_F32 = 1e-4  # card f32 net vs CPU f32 net, max error over max |CPU|
 BF16_VS_F32 = (8e-2, 2e-2)   # max and rms error over |f32|: tests/test_torch_segmenter.py
 BF16_PEAK_FLOP_S = 989e12    # H100 SXM dense bf16 tensor-core peak (data sheet)
@@ -158,6 +204,183 @@ def device_profile(prof, n_frames: int) -> dict:
     }
 
 
+class LoopProbe:
+    """Times the loop closer's work on the card while a phase runs; its
+    wrappers sit on the classes and module functions, so ``remove()``
+    restores them. BoW transforms: CUDA events around each dispatch, read
+    after the run (no added sync). Keyframe maintenance, relocalization and
+    each global-BA phase: host ms between two syncs. With ``parts``, every
+    ``_verify_and_correct`` is split into its parts, each between two syncs
+    with CUPTI kernel tracing on (torch.profiler, CUDA only) for its
+    launches and device time, and the live keyframes' poses are read before
+    and after the pose graph and after the global BA finishes; the
+    profilers' start and stop and those reads are subtracted from every
+    enclosing time (keyframe maintenance, the whole verification, a
+    chunk)."""
+
+    PARTS = ("_loop_pairs_kernel", "ransac_sim3", "optimize_sim3", "_guided_search_kernel")
+    METHODS = ("_pose_graph_correct", "_fuse_across_loop")
+
+    def __init__(self, parts: bool = False):
+        from amos_slam_tpu_torch.loop import global_ba, loop_closing
+        from amos_slam_tpu_torch.system import System
+
+        self.bow, self.maint_ms, self.reloc, self.gba_ms, self.loops = [], [], [], [], []
+        self._saved = []
+        self.overhead_ms = 0.0   # the parts' profilers and the pose reads
+        lc = loop_closing.LoopCloser
+        self._wrap(lc, "bow_dispatch", self._events(self.bow))
+        self._wrap(System, "_keyframe_maintenance", self._synced(self.maint_ms))
+        self._wrap(lc, "relocalize", self._synced(self.reloc, result=True))
+        self._wrap(global_ba.GlobalBundleAdjustment, "step", self._synced(self.gba_ms))
+        if parts:
+            for name in self.PARTS:
+                self._wrap(loop_closing, name, self._part(name))
+            for name in self.METHODS:
+                self._wrap(lc, name, self._part(name))
+            self._wrap(lc, "_pose_graph_correct", self._around_pose_graph)
+            self._wrap(global_ba.GlobalBundleAdjustment, "finish", self._after_global_ba)
+            self._wrap(lc, "_verify_and_correct", self._verify)
+
+    def _wrap(self, owner, name, make):
+        fn = getattr(owner, name)
+        self._saved.append((owner, name, fn))
+        setattr(owner, name, make(fn))
+
+    def remove(self):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        self._saved = []
+
+    @staticmethod
+    def _events(out):
+        def make(fn):
+            def run(*args, **kwargs):
+                e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                e0.record()
+                res = fn(*args, **kwargs)
+                e1.record()
+                out.append((e0, e1))
+                return res
+            return run
+        return make
+
+    def _synced(self, out, result=False):
+        def make(fn):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                t, p0 = time.perf_counter(), self.overhead_ms
+                res = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3 - (self.overhead_ms - p0)
+                out.append((ms, None if res is None else res[1]) if result else ms)
+                return res
+            return run
+        return make
+
+    def _part(self, name):
+        from torch.profiler import ProfilerActivity, profile
+
+        def make(fn):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t = time.perf_counter()
+                    res = fn(*args, **kwargs)
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t) * 1e3
+                p = device_profile(prof, 1)
+                self.overhead_ms += (time.perf_counter() - t0) * 1e3 - ms
+                if self.loops:
+                    self.loops[-1]["parts"][name] = {
+                        "ms": ms, "launches": p["kernel_launches_per_frame"],
+                        "device_ms": p["device_kernel_ms_per_frame"]}
+                return res
+            return run
+        return make
+
+    def _verify(self, fn):
+        def run(lc, slot, cand):
+            self.loops.append({"slot": slot, "cand": cand, "parts": {}})
+            torch.cuda.synchronize()
+            t, p0 = time.perf_counter(), self.overhead_ms
+            ok = fn(lc, slot, cand)
+            torch.cuda.synchronize()
+            self.loops[-1].update(accepted=bool(ok), ms=(time.perf_counter() - t) * 1e3
+                                  - (self.overhead_ms - p0))
+            return ok
+        return run
+
+    def _snapshot(self, key, m):
+        t = time.perf_counter()
+        self.loops[-1][key] = loop_search.keyframe_poses(m)
+        self.overhead_ms += (time.perf_counter() - t) * 1e3
+
+    def _around_pose_graph(self, fn):
+        def run(lc, *args, **kwargs):
+            self._snapshot("keyframes_before_pose_graph", lc.map)
+            res = fn(lc, *args, **kwargs)
+            self._snapshot("keyframes_after_pose_graph", lc.map)
+            return res
+        return run
+
+    def _after_global_ba(self, fn):
+        # a global BA starts only on a verified loop and a newer loop aborts
+        # it, so the one that finishes is the latest loop's
+        def run(gba, *args, **kwargs):
+            res = fn(gba, *args, **kwargs)
+            self._snapshot("keyframes_after_global_ba", gba.m)
+            return res
+        return run
+
+    def keyframe_ates(self, raw, kf_end, gt) -> None:
+        """Replace each loop's keyframe snapshots by the ATE of the
+        keyframes alive in all of them: their track-time poses, before and
+        after the pose graph, after the global BA (when it finished) and at
+        the end of the sequence."""
+        names = ("raw", "before_pose_graph", "after_pose_graph", "after_global_ba",
+                 "end_of_sequence")
+        for lp in self.loops:
+            if "keyframes_before_pose_graph" not in lp:
+                continue
+            before = lp.pop("keyframes_before_pose_graph")
+            snaps = {"raw": {f: raw[f] for f in before}, "before_pose_graph": before,
+                     "after_pose_graph": lp.pop("keyframes_after_pose_graph"),
+                     "after_global_ba": lp.pop("keyframes_after_global_ba", None),
+                     "end_of_sequence": kf_end}
+            present = [k for k in names if snaps[k] is not None]
+            k = loop_search.keyframe_ate([snaps[x] for x in present], gt)
+            lp["keyframe_ate_m"] = {
+                **{x: None for x in names},
+                **({} if k["ate_m"] is None else dict(zip(present, k["ate_m"]))),
+                "keyframes": len(k["frames"])}
+
+    def summary(self, slam) -> dict:
+        """The probe's readings and the run's loop outcomes."""
+        bow_ms = [e0.elapsed_time(e1) for e0, e1 in self.bow]
+        loop = slam.loop
+        return {
+            "loops_closed": [] if loop is None else [list(x) for x in loop.loops_closed],
+            "relocalizations": sum(1 for st in slam.stats if st.get("reloc")),
+            "bow_transforms": len(bow_ms),
+            "bow_event_ms_median": statistics.median(bow_ms) if bow_ms else None,
+            "bow_event_ms": bow_ms,
+            "keyframe_maintenance_ms_with_bow": self.maint_ms,
+            "relocalize_ms_and_inliers": self.reloc,
+            "global_ba_phase_ms": self.gba_ms,
+        }
+
+
+def bow_alone(slam) -> dict:
+    """One BoW transform of the last keyframe alone: per-call time of 10
+    back-to-back calls between CUDA events, device time and launches of one
+    profiled call."""
+    slot = slam.map.n_kfs - 1
+    fn = lambda: slam.loop.bow_dispatch(slot)   # noqa: E731
+    return {"bow_alone_event_ms": _event_ms(fn), **_profiled_call(fn)}
+
+
 def system_phase(fmn) -> int:
     """Phase 5 (see the module docstring). Returns the FAST launches of the
     gated run."""
@@ -170,8 +393,8 @@ def system_phase(fmn) -> int:
     planes = synthetic.default_room(seed=1)
     poses_gt = synthetic.orbit_trajectory(n, radius=0.1, advance=n / 768)
     gray, depth = [], []
-    for T in poses_gt:   # grey as a camera delivers it, as bench.py stages it
-        g, d = synthetic.render(planes, T)
+    for g, d in synthetic.render_many(planes, poses_gt, os.cpu_count() or 1):
+        # grey as a camera delivers it, as bench.py stages it
         gray.append(np.clip(g, 0, 255).astype(np.uint8).astype(np.float32))
         depth.append(d.astype(np.float32))
     # frames staged on the card before the clock starts, as bench.py does
@@ -215,6 +438,7 @@ def system_phase(fmn) -> int:
                  "fuse_neighbors_resolve", "cull_points_resolve",
                  "cull_keyframes", "refresh_landmarks"):
         timed_step(name)
+    probe = LoopProbe()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fmn.launches = 0
@@ -236,6 +460,7 @@ def system_phase(fmn) -> int:
             kf_chunk_ms.append(chunk_ms[-1])
     launches = fmn.launches
     peak_bytes = torch.cuda.max_memory_allocated()
+    probe.remove()
 
     est = np.asarray(slam.corrected_poses_np())
     gt = np.asarray(poses_gt[:SYS_FRAMES])
@@ -268,6 +493,7 @@ def system_phase(fmn) -> int:
         "keyframe_step_ms": steps,
         "max_memory_allocated_bytes": peak_bytes,
         "fast_kernel_launches": launches,
+        "loop_closer": {**probe.summary(slam), **bow_alone(slam)},
     }))
     check(launches == SYS_FRAMES,
           f"{fmn_mod.NAME} launched {launches} times in {SYS_FRAMES} system frames")
@@ -466,6 +692,7 @@ def dynamics_phase(fmn, seq) -> int:
     g_dev, d_dev, m_dev, fposes = seq
     stamps = [i / 30.0 for i in range(len(fposes))]
     slam = System(SystemConfig(use_dynamics=True, dynamics=DynamicsConfig(dyn_stride=2)))
+    probe = LoopProbe()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     launches0 = fmn.launches
@@ -484,6 +711,7 @@ def dynamics_phase(fmn, seq) -> int:
     run_launches = fmn.launches - launches0
     phase_launches = fmn.launches
     peak_bytes = torch.cuda.max_memory_allocated()
+    probe.remove()
     est = np.asarray(slam.corrected_poses_np())
     gt = np.asarray(fposes[:DYN_FRAMES])
     check(bool(np.isfinite(est).all()) and est.shape == (DYN_FRAMES, 4, 4),
@@ -558,6 +786,7 @@ def dynamics_phase(fmn, seq) -> int:
         "fast_kernel_launches": run_launches,
         "profiled_chunk_wall_ms_per_frame": wall_ms / DYN_W,
         "device_busy_share_profiled": prof_out["device_kernel_ms_per_frame"] / (wall_ms / DYN_W),
+        "loop_closer": {**probe.summary(slam), **bow_alone(slam)},
         **prof_out,
     }))
     check(run_launches == DYN_FRAMES,
@@ -703,6 +932,7 @@ def flagship_phase(fmn, seq) -> int:
     n = SEG_CHUNKS * SEG_W
     stamps = [i / 30.0 for i in range(n + SEG_W)]
     slam = System(SystemConfig(dynamics=DynamicsConfig(dyn_stride=2)))
+    probe = LoopProbe()
     torch.cuda.synchronize()
     launches1 = fmn.launches
     chunk_ms, all_masks = [], []
@@ -719,6 +949,7 @@ def flagship_phase(fmn, seq) -> int:
         masks = nxt
     run_ms = (time.perf_counter() - t0) * 1e3
     run_launches, run_calls = fmn.launches - launches1, calls[0]
+    probe.remove()
     coverage = float(torch.stack(all_masks).float().mean())
     est = np.asarray(slam.corrected_poses_np())
     gt = np.asarray(fposes[:n])
@@ -754,6 +985,7 @@ def flagship_phase(fmn, seq) -> int:
         "segmenter_launch_share": alone[0]["launches"] / SEG_W
         / prof_out["kernel_launches_per_frame"],
         "segmenter_host_ms_share": seg_host / SEG_W / (run_ms / n),
+        "loop_closer": {**probe.summary(slam), **bow_alone(slam)},
         **prof_out,
     }))
     if coverage == 0.0:
@@ -766,7 +998,76 @@ def flagship_phase(fmn, seq) -> int:
     check(min(inliers) > 50, f"flagship min inliers {min(inliers)}")
     check(slam.state is TrackingState.OK, f"flagship state {slam.state.name}")
     check(slam.map.n_kfs >= 3, f"{slam.map.n_kfs} flagship keyframes")
-    return fmn.launches - launches0
+    seg.person_mask_batch = person_mask_batch
+    return fmn.launches - launches0, seg
+
+
+def loop_phase(fmn, seg) -> int:
+    """Phase 8 (see the module docstring), driven by tools/loop_search.py.
+    Returns the FAST launches of its run."""
+    from amos_slam_tpu_torch.config import DynamicsConfig
+    from amos_slam_tpu_torch.system import System, TrackingState
+
+    g_dev, d_dev, poses, n = loop_search.render(LOOP, os.cpu_count() or 1)
+    n_all = len(poses)
+    slam = System(SystemConfig(dynamics=DynamicsConfig(dyn_stride=2)))
+    probe = LoopProbe(parts=True)
+    torch.cuda.synchronize()
+    fmn.launches = 0
+    slam, res = loop_search.track(LOOP, g_dev, d_dev, poses, n, seg, slam=slam,
+                                  overhead_ms=lambda: probe.overhead_ms)
+    run_launches = fmn.launches
+    probe.remove()
+
+    raw = np.asarray(slam.poses_np())
+    est = np.asarray(slam.corrected_poses_np())
+    check(bool(np.isfinite(est).all()) and est.shape == (n_all, 4, 4),
+          f"loop trajectory not finite or of shape {est.shape}")
+    check(bool(res["blackout_frames"]), "the run never reached 8 keyframes: no blackout")
+    probe.keyframe_ates(raw, res.pop("keyframe_poses"), poses)
+    # the relocalizer on the last frame, called once more: a reading only
+    t = time.perf_counter()
+    r = slam.loop.relocalize(slam.last_feats)
+    reloc_last = {"inliers": None if r is None else r[1], "ms": (time.perf_counter() - t) * 1e3}
+    m = slam.map
+    obs = m.kf_obs_np[: m.n_kfs]
+    dead_obs = int((~m.pt_alive[obs[obs >= 0]]).sum())
+    chunk_ms, chunk_loops = res.pop("chunk_ms"), res.pop("chunk_loops")
+    seq_chunks = n // SEG_W
+    loop_chunks = [i for i, k in enumerate(chunk_loops) if k]
+    plain = [ms for ms, k in zip(chunk_ms[:seq_chunks], chunk_loops) if not k]
+    print(json.dumps({
+        "loop_phase": "Segmenter(img_size=400) bf16 -> System(SystemConfig(dynamics="
+                      "DynamicsConfig(dyn_stride=2))).track_rgbd_chunk, 640x480 defaults, "
+                      f"tools/loop_search.py {LOOP}",
+        **res,
+        "relocalize_last_frame": reloc_last,
+        "observations_of_dead_landmarks": dead_obs,
+        "chunk_ms_per_frame_median_without_loop": statistics.median(plain) / SEG_W,
+        "chunk_ms_with_loop": [chunk_ms[i] for i in loop_chunks],
+        "loop_chunk_frames": [[i * SEG_W, i * SEG_W + SEG_W - 1] for i in loop_chunks],
+        "chunk_ms": chunk_ms,
+        "verify_and_correct": probe.loops,
+        "fast_kernel_launches": run_launches,
+        **probe.summary(slam),
+        "card": timing.smi("name,power.limit"),
+    }))
+    check(len(res["loops_closed"]) >= 1, "no loop closed")
+    check(res["state_after_sequence"] == "OK",
+          f"loop phase state {res['state_after_sequence']} after the sequence")
+    check(res["ate_m"] < 0.03, f"loop phase corrected ATE {res['ate_m']:.4f} m")
+    check(res["ate_m"] <= res["ate_raw_m"] + 1e-4,
+          f"corrected ATE {res['ate_m']:.5f} above the raw {res['ate_raw_m']:.5f} m")
+    check(bool(res["reloc_frames"]),
+          f"no frame relocalized after the kidnap to frames {res['kidnap_back_frames']}")
+    check(res["ate_with_kidnap_m"] < 0.03, f"ATE with the kidnap {res['ate_with_kidnap_m']:.4f} m")
+    check(slam.state is TrackingState.OK, f"loop phase state {slam.state.name} at the end")
+    check(dead_obs == 0, f"{dead_obs} observations point at dead landmarks")
+    check(np.array_equal(m.arrays.kf_obs[: m.n_kfs].cpu().numpy(), obs),
+          "device kf_obs differs from the host mirror")
+    check(run_launches == n_all,
+          f"{fmn_mod.NAME} launched {run_launches} times in {n_all} loop frames")
+    return run_launches
 
 
 def main() -> int:
@@ -900,16 +1201,20 @@ def main() -> int:
     seq = mover_sequence(DYN_FRAMES + DYN_W)
     dyn_launches = dynamics_phase(fmn, seq)
     # 7. the flagship: the segmenter feeding the system with dynamics
-    flag_launches = flagship_phase(fmn, seq)
+    flag_launches, seg = flagship_phase(fmn, seq)
+    del seq
+    # 8. loop closing and relocalization on the flagship
+    loop_launches = loop_phase(fmn, seg)
     print(json.dumps({"fast_kernel_launches": {"odometry": launches, "system": sys_launches,
                                                "dynamics": dyn_launches,
-                                               "flagship": flag_launches}}))
+                                               "flagship": flag_launches,
+                                               "loop": loop_launches}}))
 
     print(json.dumps({"kernels": [{
         "name": fmn_mod.NAME, "route": "cuda",
         "source": "amos_slam_tpu_torch/csrc/fast_margin_nms.cu",
         "replaces": "amos_slam_tpu/ops/pallas/fast_pallas.py:110",
-        "launches": launches + sys_launches + dyn_launches + flag_launches,
+        "launches": launches + sys_launches + dyn_launches + flag_launches + loop_launches,
         "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,

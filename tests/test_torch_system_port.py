@@ -2,7 +2,8 @@
 bookkeeping, chunk vs per-frame tracking, a LOST episode, keyframe
 capacity growth and compaction (tests/test_long_sequence.py's cases at
 320x240), trajectory export, the snapshot that local BA must not reach,
-and the features that still raise NotImplementedError.
+the features that still raise NotImplementedError, and a given vocabulary
+with global_refine.
 
 Gates: ATE < 1.5 cm on the orbit sequence for the per-frame and the chunk
 path; < 5 cm on the 80-frame exploratory sweep; device and host
@@ -11,6 +12,7 @@ corrected_poses_np (its 9 printed decimals).
 """
 
 import dataclasses
+import pathlib
 
 import numpy as np
 import pytest
@@ -19,7 +21,11 @@ import torch
 from amos_slam_tpu_torch.config import (CameraConfig, MapConfig, ORBConfig,
                                         SystemConfig, TrackingConfig)
 from amos_slam_tpu_torch.io import evaluate, synthetic, trajectory
+from amos_slam_tpu_torch.loop import vocab_io
 from amos_slam_tpu_torch.system import System, TrackingState
+
+DEFAULT_VOCAB = (pathlib.Path(__file__).resolve().parents[1] / "amos_slam_tpu_torch" / "data"
+                 / "default_vocab.npz")
 
 CAM = dict(fx=535.4 / 2, fy=539.2 / 2, cx=320.1 / 2, cy=247.6 / 2,
            width=320, height=240)
@@ -244,10 +250,10 @@ def test_save_trajectory_tum_round_trip(per_frame, tmp_path):
 
 def test_unported_features_raise(orbit):
     g, d = orbit[1][0]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        System(cfg(), device="cpu", vocabulary=object())
     with pytest.raises(NotImplementedError, match="item 10"):
         System(dataclasses.replace(cfg(), sensor="mono"), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        System(cfg(), None, "debug_frames", device="cpu")
     slam = System(cfg(), device="cpu")
     calls = {
         "10": lambda: slam.track_stereo(g, g, 0.0),
@@ -256,8 +262,7 @@ def test_unported_features_raise(orbit):
     for item, call in calls.items():
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             call()
-    for call in (lambda: slam.track_monocular(g, 0.0), lambda: slam.load_map("x"),
-                 lambda: slam.global_refine()):
+    for call in (lambda: slam.track_monocular(g, 0.0), lambda: slam.load_map("x")):
         with pytest.raises(NotImplementedError):
             call()
     assert slam.frame_id == -1 and not slam.poses_cw     # nothing was tracked
@@ -267,6 +272,17 @@ def test_unported_features_raise(orbit):
     dyn.track_rgbd(g, d, 0.0, seg_mask=np.zeros_like(g, bool),
                    rgb=np.zeros(g.shape + (3,), np.uint8))
     assert dyn.frame_id == 0 and dyn.state is TrackingState.OK
+    # place recognition is ported: a vocabulary given positionally, as in
+    # the JAX package, is the loop closer's; global_refine runs
+    voc = vocab_io.load_npz(str(DEFAULT_VOCAB), device="cpu")
+    slam = System(cfg(), voc, device="cpu")
+    for i, (gi, di) in enumerate(orbit[1][:6]):
+        slam.track_rgbd(gi, di, i / 30.0)
+    assert slam.loop is not None and slam.loop.voc.n_words == voc.n_words == 4096
+    assert sorted(slam.loop.db.kf_bow) == list(range(slam.map.n_kfs))
+    slam.global_refine()
+    assert bool(torch.isfinite(slam.map.arrays.kf_pose).all())
+    assert ate(slam.corrected_poses_np(), orbit[0][:6]) < 0.015
 
 
 def test_system_defaults_to_cuda():
