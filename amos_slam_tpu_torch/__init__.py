@@ -10,18 +10,21 @@ card unless the caller passes ``device="cpu"``.
 Subpackages (ported so far)
 ---------------------------
 geometry   SE3 and Sim3 Lie groups, pinhole camera.
-solvers    Robust weights, pose optimization, local BA, PnP, epipolar distance,
-           Sim3 RANSAC and refinement, pose graph, structure-only refits.
-ops        Pyramid, FAST-9, rBRIEF, Hamming matching; kernels/ holds the
-           CUDA kernel wrappers.
+solvers    Robust weights, pose optimization, local BA, PnP, F-RANSAC, the
+           two-view H/F initializer, Sim3 RANSAC and refinement, pose graph,
+           structure-only refits.
+ops        Pyramid, FAST-9, rBRIEF, Hamming and stereo matching; kernels/
+           holds the CUDA kernel wrappers.
 frontend   ORB extraction pipeline, tracking, the geometric dynamic stage.
 slam_map   Map state, local-map tracking, triangulation, maintenance.
 loop       BoW vocabulary, keyframe database, loop closing, relocalization,
            global BA (data/default_vocab.npz is the default vocabulary).
 models     YOLACT stage one: ResNet-FPN, ProtoNet, fast-NMS, Segmenter.
-io         Synthetic scenes, trajectory IO, ATE/RPE evaluation.
+io         Synthetic scenes, TUM / KITTI / EuRoC loaders, trajectory IO,
+           ATE/RPE evaluation.
+examples   The reference's six example mains against the port.
 tools      Timing tools for the card.
-system     The System facade (RGB-D; per-frame and chunked tracking).
+system     The System facade (RGB-D per frame and chunked, stereo, mono).
 """
 
 import torch as _torch

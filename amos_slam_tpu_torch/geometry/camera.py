@@ -64,6 +64,14 @@ def project(cam: Camera, pts_c: torch.Tensor, eps: float = 1e-6):
     return torch.stack([u, v], dim=-1), z
 
 
+def project_stereo(cam: Camera, pts_c: torch.Tensor, eps: float = 1e-6):
+    """Camera-frame points (...,3) -> (u, v, u_right) (...,3) and depth
+    (...,), the reference's stereo edges."""
+    uv, z = project(cam, pts_c, eps)
+    ur = uv[..., 0] - cam.bf / torch.clamp(z, min=eps)
+    return torch.cat([uv, ur[..., None]], dim=-1), z
+
+
 def backproject(cam: Camera, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
     """Undistorted pixels (...,2) + depth (...,) -> camera-frame points (...,3)."""
     x = (uv[..., 0] - cam.cx) / cam.fx * depth

@@ -24,11 +24,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
   5. system  -- System(SystemConfig(use_dynamics=False)) at the defaults
                 (640x480, 1000 features, max_keyframes 512, max_points
                 32768, 4096-point local map, local BA over 8 + 4 keyframes
-                and 1024 landmarks) over 128 frames of the bench's motion
-                (orbit_trajectory(144, radius=0.1, advance=144/768): each
-                frame moves as much as in bench.py's 768-frame run): frames
-                0-31 through track_rgbd, frames 32-127 through
-                track_rgbd_chunk in 12 chunks of 8. Gates: ATE of
+                and 1024 landmarks) over the first 96 frames of the bench's
+                motion (orbit_trajectory(144, radius=0.1, advance=144/768):
+                each frame moves as much as in bench.py's 768-frame run):
+                frames 0-31 through track_rgbd, frames 32-95 through
+                track_rgbd_chunk in 8 chunks of 8. Gates: ATE of
                 corrected_poses_np < 1.5 cm, RPE-t < 1 cm, local-map inliers
                 > 50 after frame 0, state OK, >= 3 keyframes, > 300 live
                 landmarks, >= 2 local BA solves with finite poses, device
@@ -129,12 +129,40 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 the pose graph, after its global BA and at the end of the
                 sequence, each global-BA phase's ms, the relocalizations' ms
                 and the ms per chunk with the loop chunks apart.
-The last three lines are the kernels JSON, the card's name and power limit
-(nvidia-smi), and {"ok": true, "device": {...}}.
+  9. stereo -- System(SystemConfig(camera=io.kitti.kitti_camera_config(0),
+                orb=ORBConfig(n_features=2000, max_kpts=2048), sensor="stereo",
+                use_dynamics=False)), the settings of examples/stereo_kitti.py,
+                at KITTI's 1241x376 over 64 frames of orbit_trajectory(64,
+                radius=0.1, advance=0.25) in default_room(seed=9) (the motion
+                of tests/test_stereo_mono_e2e.py's stereo run), each pair
+                rendered at KITTI 00-02's intrinsics with the right camera
+                bf / fx = 0.537 m to the right. Gates: state OK, ATE of
+                corrected_poses_np < 2 cm, local-map inliers > 50 after frame
+                0, >= 3 keyframes, two FAST launches per frame. Prints the
+                ms per frame on the fused path and on the split path (one
+                frame after the state is set to LOST, a reading only), each
+                with launches and device ms under torch.profiler, and
+                match_stereo alone at the path's shapes.
+ 10. mono   -- System(SystemConfig(sensor="mono", use_dynamics=False)) at the
+                640x480 defaults (examples/mono_tum.py) over
+                orbit_trajectory(60, radius=0.35, advance=0.15) in
+                default_room(seed=11) (tests/test_stereo_mono_e2e.py's mono
+                scene with twice its frames). Gates: initialized (a keyframe
+                frame), state OK, >= 2 keyframes, > 100 landmarks,
+                scale-aligned ATE after initialization < 5 cm, one FAST
+                launch per frame. Prints the fused and split paths as phase
+                9 does (the split frame: one after the last frame's landmark
+                ids are dropped), and each _initialize_mono call's host and
+                device ms, launches and the model that won (H or F).
+The kernels phase also holds the FAST kernel against its plain version at
+the stereo path's (8, 376, 1241) with KITTI's level extents, and times it
+there. The last three lines are the kernels JSON, the card's name and power
+limit (nvidia-smi), and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -154,7 +182,7 @@ from amos_slam_tpu_torch.ops.kernels import timing
 from amos_slam_tpu_torch.tools import loop_search
 
 N_FRAMES = 30
-SYS_FRAMES = 128        # gated main run of the system phase
+SYS_FRAMES = 96         # gated main run of the system phase
 SYS_PER_FRAME = 32      # of which the first go through track_rgbd
 SYS_W = 8               # chunk width of track_rgbd_chunk, as bench.py
 SYS_PROFILED = 16       # two more chunks under torch.profiler
@@ -164,6 +192,9 @@ DYN_W = 8               # chunk width; one more chunk is profiled
 SEG_W = 8               # flagship chunk width, as bench.py
 SEG_CHUNKS = 8          # gated flagship chunks; one more is profiled
 LOOP = loop_search.PHASE8   # phase 8's sequence, blackout and kidnap
+STEREO_FRAMES = 64     # gated stereo run (phase 9)
+MONO_FRAMES = 60       # gated mono run (phase 10)
+PATH_PROFILED = 4      # fused-path frames profiled after each of them
 CARD_VS_CPU_F32 = 1e-4  # card f32 net vs CPU f32 net, max error over max |CPU|
 BF16_VS_F32 = (8e-2, 2e-2)   # max and rms error over |f32|: tests/test_torch_segmenter.py
 BF16_PEAK_FLOP_S = 989e12    # H100 SXM dense bf16 tensor-core peak (data sheet)
@@ -391,7 +422,7 @@ def system_phase(fmn) -> int:
     dev = torch.device("cuda")
     n = SYS_FRAMES + SYS_PROFILED
     planes = synthetic.default_room(seed=1)
-    poses_gt = synthetic.orbit_trajectory(n, radius=0.1, advance=n / 768)
+    poses_gt = synthetic.orbit_trajectory(144, radius=0.1, advance=144 / 768)[:n]
     gray, depth = [], []
     for g, d in synthetic.render_many(planes, poses_gt, os.cpu_count() or 1):
         # grey as a camera delivers it, as bench.py stages it
@@ -1069,6 +1100,230 @@ def loop_phase(fmn, seg) -> int:
           f"{fmn_mod.NAME} launched {run_launches} times in {n_all} loop frames")
     return run_launches
 
+def _path_readings(slam, track, frames, stamps, force_split) -> dict:
+    """After a gated run: ``PATH_PROFILED`` more frames on the fused path,
+    then one on the split path (``force_split()`` makes the next frame
+    take it), each window timed between syncs and then again under
+    torch.profiler on the next frames (launches and device ms per frame).
+    ``frames[i]`` is the argument tuple of ``track``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out, i = {}, 0
+
+    def window(name, n, before=lambda: None):
+        nonlocal i
+        for profiled in (False, True):
+            before()
+            torch.cuda.synchronize()
+            ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                   if profiled else contextlib.nullcontext())
+            with ctx as prof:
+                t = time.perf_counter()
+                for _ in range(n):
+                    track(*frames[i], stamps[i])
+                    i += 1
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3 / n
+            if profiled:
+                p = device_profile(prof, n)
+                out[name].update(profiled_ms_per_frame=ms,
+                                 launches_per_frame=p["kernel_launches_per_frame"],
+                                 device_ms_per_frame=p["device_kernel_ms_per_frame"],
+                                 top_kernels=p["top_kernels_by_device_ms"][:3])
+            else:
+                out[name] = {"frames": n, "ms_per_frame": ms}
+
+    window("fused", PATH_PROFILED)
+    window("split", 1, force_split)
+    return out
+
+
+def stereo_phase(fmn) -> int:
+    """Phase 9 (see the module docstring). Returns the FAST launches of its
+    gated run."""
+    from amos_slam_tpu_torch.config import ORBConfig
+    from amos_slam_tpu_torch.frontend.tracking import stereo_features
+    from amos_slam_tpu_torch.io.kitti import kitti_camera_config
+    from amos_slam_tpu_torch.ops.stereo import match_stereo
+    from amos_slam_tpu_torch.system import System, TrackingState
+
+    cam = kitti_camera_config(0)
+    cfg = SystemConfig(camera=cam, orb=ORBConfig(n_features=2000, max_kpts=2048),
+                       sensor="stereo", use_dynamics=False)
+    n = STEREO_FRAMES + 2 * (PATH_PROFILED + 1)
+    poses = synthetic.orbit_trajectory(STEREO_FRAMES, radius=0.1, advance=0.25)
+    poses = poses + poses[::-1][1: n - STEREO_FRAMES + 1]   # the readings retrace the path
+    planes = synthetic.default_room(seed=9)
+    shift = np.eye(4)
+    shift[0, 3] = -cam.bf / cam.fx
+    kw = dict(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, width=cam.width, height=cam.height)
+    workers = os.cpu_count() or 1
+    t = time.perf_counter()
+    left = synthetic.render_many(planes, poses, workers, **kw)
+    right = synthetic.render_many(planes, [shift @ T for T in poses], workers, **kw)
+    render_s = time.perf_counter() - t
+    grey = lambda fr: np.stack([np.clip(g, 0, 255).astype(np.uint8) for g, _ in fr])  # noqa: E731
+    gl, gr = _to_dev(grey(left).astype(np.float32), grey(right).astype(np.float32))
+    stamps = [i / cam.fps for i in range(n)]
+
+    slam = System(cfg)
+    probe = LoopProbe()
+    torch.cuda.synchronize()
+    fmn.launches = 0
+    frame_ms = []
+    for i in range(STEREO_FRAMES):
+        t = time.perf_counter()
+        slam.track_stereo(gl[i], gr[i], stamps[i])
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+    launches = fmn.launches
+    probe.remove()
+    est = np.asarray(slam.corrected_poses_np())
+    gt = np.asarray(poses[:STEREO_FRAMES])
+    check(bool(np.isfinite(est).all()) and est.shape == (STEREO_FRAMES, 4, 4),
+          f"stereo trajectory not finite or of shape {est.shape}")
+    ate = evaluate.ate_rmse(evaluate.positions_from_cw(est), evaluate.positions_from_cw(gt))
+    rpe_t, rpe_r = evaluate.rpe(est, gt)
+    inliers = [s["inliers"] for s in slam.stats[1:]]
+    n_kfs, state = slam.map.n_kfs, slam.state
+    frames = list(zip(gl[STEREO_FRAMES:], gr[STEREO_FRAMES:]))
+    paths = _path_readings(slam, slam.track_stereo, frames, stamps[STEREO_FRAMES:],
+                           lambda: setattr(slam, "state", TrackingState.LOST))
+
+    # match_stereo alone on the last pair
+    pipe = slam.pipeline
+    kl, _, bl, pl = pipe.detect_keypoints(gl[-1])
+    kr, _, br, pr = pipe.detect_keypoints(gr[-1])
+    fl, fr = pipe.describe(kl, pl), pipe.describe(kr, pr)
+    min_z = pipe.cam.bf / pipe.cam.fx
+    args = (fl.desc, kl.xy, kl.level, fl.valid, fr.desc, kr.xy, kr.level, fr.valid,
+            bl[0], br[0], pipe.cam.bf, min_z)
+    n_match = int(match_stereo(*args).valid.sum())
+    alone = {"event_ms_per_call": _event_ms(lambda: match_stereo(*args)),
+             **_profiled_call(lambda: match_stereo(*args)),
+             "keypoints": [int(fl.valid.sum()), int(fr.valid.sum())], "matched": n_match}
+    feats_ms = _event_ms(lambda: stereo_features(pipe, kl, bl, pl, kr, br, pr, min_z))
+    print(json.dumps({
+        "stereo_phase": "System(SystemConfig(camera=kitti_camera_config(0), orb=ORBConfig("
+                        "n_features=2000, max_kpts=2048), sensor='stereo', "
+                        "use_dynamics=False)) 1241x376",
+        "frames": STEREO_FRAMES, "render_s": render_s,
+        "ate_m": ate, "rpe_t_m": rpe_t, "rpe_r_rad": rpe_r,
+        "min_inliers": min(inliers), "state": state.name, "keyframes": n_kfs,
+        "keyframe_frames": [int(f) for f in slam.map.kf_frame_id[: n_kfs]],
+        "landmarks": slam.map.n_pts,
+        "frame_ms_first": frame_ms[0],
+        "frame_ms_median_after_5": statistics.median(frame_ms[5:]),
+        "paths": paths,
+        "match_stereo_alone": alone,
+        "describe_and_match_event_ms": feats_ms,
+        "fast_kernel_launches": launches,
+        "loop_closer": probe.summary(slam),
+        "card": timing.smi("name,power.limit"),
+    }))
+    check(launches == 2 * STEREO_FRAMES,
+          f"{fmn_mod.NAME} launched {launches} times in {STEREO_FRAMES} stereo frames")
+    check(state is TrackingState.OK, f"stereo state {state.name}")
+    check(ate < 0.02, f"stereo ATE {ate:.4f} m")
+    check(min(inliers) > 50, f"stereo min inliers {min(inliers)}")
+    check(n_kfs >= 3, f"{n_kfs} stereo keyframes")
+    return launches
+
+
+def mono_phase(fmn) -> int:
+    """Phase 10 (see the module docstring). Returns the FAST launches of its
+    gated run."""
+    import amos_slam_tpu_torch.system as system_mod
+    from torch.profiler import ProfilerActivity, profile
+
+    from amos_slam_tpu_torch.system import System, TrackingState
+
+    cfg = SystemConfig(sensor="mono", use_dynamics=False)
+    cam = cfg.camera
+    n = MONO_FRAMES + 2 * (PATH_PROFILED + 1)
+    poses = synthetic.orbit_trajectory(MONO_FRAMES, radius=0.35, advance=0.15)
+    poses = poses + poses[::-1][1: n - MONO_FRAMES + 1]   # the readings retrace the path
+    planes = synthetic.default_room(seed=11)
+    frames = synthetic.render_many(planes, poses, os.cpu_count() or 1)
+    (g_dev,) = _to_dev(np.stack([np.clip(g, 0, 255).astype(np.uint8) for g, _ in frames])
+                       .astype(np.float32))
+    stamps = [i / cam.fps for i in range(n)]
+
+    slam = System(cfg)
+    inits, models = [], []
+    init_mono, two_view = slam._initialize_mono, system_mod.initialize_two_view
+
+    def timed_init(feats):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            Tcw = init_mono(feats)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+        p = device_profile(prof, 1)
+        inits.append({"frame": slam.frame_id, "ms": ms, "kf": bool(slam.stats[-1]["kf"]),
+                      "launches": p["kernel_launches_per_frame"],
+                      "device_ms": p["device_kernel_ms_per_frame"],
+                      "model": models[-1] if slam.stats[-1]["kf"] and models else None})
+        return Tcw
+
+    def recording_two_view(*args, **kwargs):
+        res = two_view(*args, **kwargs)
+        models.append({"model": "H" if bool(res.used_h) else "F",
+                       "num_good": int(res.num_good), "ok": bool(res.ok)})
+        return res
+
+    slam._initialize_mono = timed_init
+    system_mod.initialize_two_view = recording_two_view
+    probe = LoopProbe()
+    try:
+        torch.cuda.synchronize()
+        fmn.launches = 0
+        frame_ms = []
+        for i in range(MONO_FRAMES):
+            t = time.perf_counter()
+            slam.track_monocular(g_dev[i], stamps[i])
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t) * 1e3)
+        launches = fmn.launches
+    finally:
+        system_mod.initialize_two_view = two_view
+        probe.remove()
+    est = np.asarray(slam.poses_np())
+    check(bool(np.isfinite(est).all()) and est.shape == (MONO_FRAMES, 4, 4),
+          f"mono trajectory not finite or of shape {est.shape}")
+    init = next((i for i, st in enumerate(slam.stats) if st.get("kf")), None)
+    check(init is not None, "the monocular map never initialized")
+    ate = evaluate.ate_rmse(evaluate.positions_from_cw(est[init:]),
+                            evaluate.positions_from_cw(np.asarray(poses[init:MONO_FRAMES])),
+                            with_scale=True)
+    m = slam.map
+    n_kfs, n_pts, alive, state = m.n_kfs, m.n_pts, int(m.pt_alive.sum()), slam.state
+    inliers = [st["inliers"] for st in slam.stats[init + 1:]]
+    paths = _path_readings(slam, slam.track_monocular, [(g,) for g in g_dev[MONO_FRAMES:]],
+                           stamps[MONO_FRAMES:], lambda: setattr(slam, "_last_pid", None))
+    print(json.dumps({
+        "mono_phase": "System(SystemConfig(sensor='mono', use_dynamics=False)) 640x480 defaults",
+        "frames": MONO_FRAMES, "init_frame": init,
+        "ate_scale_aligned_after_init_m": ate, "state": state.name,
+        "keyframes": n_kfs, "keyframe_frames": [int(f) for f in m.kf_frame_id[: n_kfs]],
+        "landmarks": n_pts, "landmarks_alive": alive,
+        "min_inliers_after_init": min(inliers) if inliers else None,
+        "frame_ms_median_after_init": statistics.median(frame_ms[init + 2:]),
+        "initialize_mono_calls": inits,
+        "paths": paths,
+        "fast_kernel_launches": launches,
+        "loop_closer": probe.summary(slam),
+        "card": timing.smi("name,power.limit"),
+    }))
+    check(launches == MONO_FRAMES,
+          f"{fmn_mod.NAME} launched {launches} times in {MONO_FRAMES} mono frames")
+    check(state is TrackingState.OK, f"mono state {state.name}")
+    check(n_kfs >= 2, f"{n_kfs} mono keyframes")
+    check(n_pts > 100, f"{n_pts} mono landmarks")
+    check(ate < 0.05, f"mono scale-aligned ATE {ate:.4f}")
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1144,6 +1399,35 @@ def main() -> int:
         "smi_under_load": smi_load,
     }))
 
+    # the stereo path's canvas: KITTI 00-02, 1241 wide (not a multiple of 4)
+    from amos_slam_tpu_torch.io.kitti import kitti_camera_config
+
+    kcam = kitti_camera_config(0)
+    ksizes = cfg.orb.level_sizes(kcam.width, kcam.height)
+    kgray = synthetic.render(planes, poses_gt[0], fx=kcam.fx, fy=kcam.fy, cx=kcam.cx,
+                             cy=kcam.cy, width=kcam.width, height=kcam.height)[0]
+    kpyr = pyramid.build_pyramid(torch.from_numpy(kgray).to(dev), ksizes)   # (8, 376, 1241)
+    klevels = torch.tensor(ksizes, dtype=torch.int32, device=dev)
+    k_out, k_plain = fmn(kpyr, klevels), fmn_mod.fast_margin_nms_plain(kpyr, klevels)
+    torch.cuda.synchronize()
+    k_err = float((k_out - k_plain).abs().max())
+    k_exact = bool(torch.equal(k_out, k_plain))
+    print(f"kernel {fmn_mod.NAME} kitti_stereo_level_extents {tuple(kpyr.shape)}: tolerance "
+          f"exact, equal={k_exact} max_abs_err={k_err} nonzero={int((k_out > 0).sum())}")
+    check(k_exact, f"{fmn_mod.NAME} differs from its plain version at the KITTI shape")
+    max_err = max(max_err, k_err)
+    k_ms, k_runs, k_held = timing.loop_ms(lambda: fmn(kpyr, klevels), launches=200)
+    k_plain_ms, _, _ = timing.loop_ms(
+        lambda: fmn_mod.fast_margin_nms_plain(kpyr, klevels), launches=10, hold=False)
+    k_read = sum(h * w for h, w in ksizes)
+    k_bound, k_by = timing.bound(4 * k_read, 4 * kpyr.numel(), fmn_mod.OPS_PER_PIXEL * k_read)
+    print(json.dumps({
+        "timing": fmn_mod.NAME, "shape": list(kpyr.shape), "extents": "KITTI level sizes",
+        "ms": k_ms, "runs_ms": k_runs, "runs_queue_held": k_held, "plain_ms": k_plain_ms,
+        "bound_ms": k_bound, "bound_by": k_by, "read_px": k_read, "write_px": kpyr.numel(),
+        "card": timing.smi("name,power.limit"),
+    }))
+
     # 3. the main path
     odo = RGBDOdometry(cfg)
     fmn.launches = 0
@@ -1195,26 +1479,42 @@ def main() -> int:
         **prof_out,
     }))
 
+    phase_s = {"1-4": time.perf_counter() - t0}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
     # 5. the system path
-    sys_launches = system_phase(fmn)
+    sys_launches = timed("5 system", system_phase, fmn)
     # 6. the system path with the geometric dynamic stage
-    seq = mover_sequence(DYN_FRAMES + DYN_W)
-    dyn_launches = dynamics_phase(fmn, seq)
+    seq = timed("6 render", mover_sequence, DYN_FRAMES + DYN_W)
+    dyn_launches = timed("6 dynamics", dynamics_phase, fmn, seq)
     # 7. the flagship: the segmenter feeding the system with dynamics
-    flag_launches, seg = flagship_phase(fmn, seq)
+    flag_launches, seg = timed("7 flagship", flagship_phase, fmn, seq)
     del seq
     # 8. loop closing and relocalization on the flagship
-    loop_launches = loop_phase(fmn, seg)
+    loop_launches = timed("8 loop", loop_phase, fmn, seg)
+    del seg
+    # 9. stereo at KITTI's canvas; 10. monocular at 640x480
+    stereo_launches = timed("9 stereo", stereo_phase, fmn)
+    mono_launches = timed("10 mono", mono_phase, fmn)
+    print(json.dumps({"phase_wall_s": phase_s, "total_s": time.perf_counter() - t0}))
     print(json.dumps({"fast_kernel_launches": {"odometry": launches, "system": sys_launches,
                                                "dynamics": dyn_launches,
                                                "flagship": flag_launches,
-                                               "loop": loop_launches}}))
+                                               "loop": loop_launches,
+                                               "stereo": stereo_launches,
+                                               "mono": mono_launches}}))
 
     print(json.dumps({"kernels": [{
         "name": fmn_mod.NAME, "route": "cuda",
         "source": "amos_slam_tpu_torch/csrc/fast_margin_nms.cu",
         "replaces": "amos_slam_tpu/ops/pallas/fast_pallas.py:110",
-        "launches": launches + sys_launches + dyn_launches + flag_launches + loop_launches,
+        "launches": (launches + sys_launches + dyn_launches + flag_launches + loop_launches
+                     + stereo_launches + mono_launches),
         "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,

@@ -19,10 +19,14 @@ from amos_slam_tpu_torch.config import ORBConfig
 from amos_slam_tpu_torch.ops.kernels import fast_margin_nms as fmn_mod
 
 LEVELS = [list(s) for s in ORBConfig().level_sizes(640, 480)]
+# the stereo path at KITTI 00-02's canvas: 1241 is not a multiple of 4, so
+# staging takes the scalar path
+KITTI_LEVELS = [list(s) for s in ORBConfig().level_sizes(1241, 376)]
 # name -> ((B, H, W), extents or None, lowest input value)
 EXTENT_CASES = {
     "main_path_levels": ((8, 480, 640), LEVELS, -50),
     "main_path_canvas": ((8, 480, 640), None, 0),
+    "kitti_stereo_levels": ((8, 376, 1241), KITTI_LEVELS, -50),
     "ragged": ((3, 70, 128), [[70, 128], [37, 65], [1, 1]], -50),
     "ragged_odd_width": ((3, 33, 65), [[33, 65], [17, 3], [32, 64]], -50),
     "equal_to_canvas": ((2, 96, 192), [[96, 192], [96, 192]], -50),

@@ -17,12 +17,10 @@ keyframes alive throughout at their track-time poses, before and after
 the pose graph, after the global BA and at the end.
 
 The second test runs both packages' ``track_rgbd_chunk`` (chunks of 8,
-use_dynamics=False, JAX without ``deterministic``) on the same 160 frames.
-No test holds the chunk path to JAX: JAX's non-deterministic System
-resolves keyframe work with a lag the port does not have, so the runs part
-after the first keyframe. It holds the frames before that keyframe equal
-and both trajectories finite, and prints each package's keyframes, loops,
-ATE and local-map inliers per frame.
+use_dynamics=False, JAX without ``deterministic``) on the same 160 frames,
+JAX's pending work flushed after every call so that its keyframe work
+resolves where the port's does (test_torch_system_loop.run_pair with
+``chunk``), with the same gates and readings as the first.
 
 Marked slow (four 160-frame Systems, ~6 min on the CPU); run it with
 ``python -m pytest -m slow -s tests/test_torch_loop_sweep.py``.
@@ -37,11 +35,9 @@ import torch
 
 from amos_slam_tpu.loop import global_ba as jgba
 from amos_slam_tpu.loop import loop_closing as jlc
-from amos_slam_tpu.system import System as JSystem
 from amos_slam_tpu_torch.io import evaluate, synthetic
 from amos_slam_tpu_torch.loop import global_ba as tgba
 from amos_slam_tpu_torch.loop import loop_closing as tlc
-from amos_slam_tpu_torch.system import System
 from amos_slam_tpu_torch.tools import loop_search
 from test_torch_system_loop import CAM, ate, configs, run_pair
 
@@ -120,32 +116,23 @@ def test_phase8_sweep_as_in_jax(monkeypatch):
     assert dpos.max() < 5e-3, dpos.max()
 
 
-def test_phase8_sweep_chunk_path_readings():
+def test_phase8_sweep_chunk_path_readings(monkeypatch):
     planes = synthetic.default_room(seed=loop_search.PHASE8["seed"])
     poses = loop_search.trajectory(loop_search.PHASE8)
     frames = [synthetic.render(planes, T, **CAM) for T in poses]
-    g = np.stack([np.clip(f[0], 0, 255).astype(np.uint8) for f in frames]).astype(np.float32)
-    d = np.stack([f[1] for f in frames])
+    jloops = record_stages(monkeypatch, jlc, jgba)
+    tloops = record_stages(monkeypatch, tlc, tgba)
     jcfg, tcfg = configs()
-    js = JSystem(dataclasses.replace(jcfg, deterministic=False))
-    ts = System(dataclasses.replace(tcfg, deterministic=False), device="cpu")
-    w = loop_search.W
-    for c in range(0, len(poses), w):
-        stamps = [i / 30.0 for i in range(c, c + w)]
-        js.track_rgbd_chunk(g[c: c + w], d[c: c + w], stamps)
-        ts.track_rgbd_chunk(torch.from_numpy(g[c: c + w]), torch.from_numpy(d[c: c + w]), stamps)
-    js.shutdown()
-    ts.shutdown()
-    out = {}
-    for name, s in (("jax", js), ("port", ts)):
-        m = s.map
-        out[name] = {"loops_closed": [[int(a), int(b)] for a, b in s.loop.loops_closed],
-                     "keyframe_frames": [int(f) for f in m.kf_frame_id[: m.n_kfs]],
-                     "ate_raw_m": ate(s.poses_np(), poses),
-                     "ate_m": ate(s.corrected_poses_np(), poses),
-                     "inliers": [int(st["inliers"]) for st in s.stats]}
-        assert np.isfinite(np.asarray(s.corrected_poses_np())).all()
-    print(json.dumps({"sequence": f"{loop_search.PHASE8} chunk path, 320x240", **out}))
-    first_kf = out["jax"]["keyframe_frames"][1]
-    assert out["port"]["keyframe_frames"][1] == first_kf
-    assert out["port"]["inliers"][: first_kf + 1] == out["jax"]["inliers"][: first_kf + 1]
+    js, ts = run_pair(frames, dataclasses.replace(jcfg, deterministic=False),
+                      dataclasses.replace(tcfg, deterministic=False), monkeypatch,
+                      chunk=loop_search.W)
+    assert any(T.ndim == 3 for T in ts.poses_cw)                  # chunks were tracked
+    rj, rt = readings(js, poses, jloops), readings(ts, poses, tloops)
+    print(json.dumps({"sequence": f"{loop_search.PHASE8} chunk path, 320x240",
+                      "jax": rj, "port": rt}))
+    assert ts.loop.loops_closed == js.loop.loops_closed
+    mj, mt = js.map, ts.map
+    np.testing.assert_array_equal(mt.kf_frame_id[: mt.n_kfs], mj.kf_frame_id[: mj.n_kfs])
+    cj, ct = np.asarray(js.corrected_poses_np()), np.asarray(ts.corrected_poses_np())
+    dpos = np.linalg.norm(evaluate.positions_from_cw(cj) - evaluate.positions_from_cw(ct), axis=1)
+    assert dpos.max() < 5e-3, dpos.max()

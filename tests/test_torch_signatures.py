@@ -2,11 +2,13 @@
 and their order (``inspect.signature``), and plain defaults (numbers,
 strings, booleans, tuples, None).
 
-The port may add keyword-only parameters (``device``; ``sample_idx`` where
+The port may add keyword-only parameters (``device``; ``sample_idx``, or
+``sample_idx_f`` / ``sample_idx_h`` for the initializer's two draws, where
 JAX draws with a key), and renames on purpose only what torch cannot take:
 a ``jax.random`` key becomes a ``torch.Generator`` (RENAMED). Covered: the
-System and Segmenter entry points, and the public functions, classes and
-methods of the loop-closing modules, with the fields of their NamedTuples.
+System and Segmenter entry points, the public functions, classes and
+methods of the loop-closing modules, the stereo / monocular modules and the
+dataset loaders, with the fields of their NamedTuples.
 """
 
 import importlib
@@ -20,7 +22,7 @@ PLAIN = (int, float, bool, str, tuple, type(None))
 SYSTEM = ["__init__", "track_rgbd", "track_rgbd_chunk", "save_trajectory_tum",
           "save_trajectory_kitti", "save_keyframe_trajectory_tum", "corrected_poses_np",
           "global_refine", "shutdown", "reset", "poses_np", "activate_localization_mode",
-          "deactivate_localization_mode"]
+          "deactivate_localization_mode", "track_stereo", "track_monocular"]
 CALLABLES = (
     [("system", f"System.{m}") for m in SYSTEM]
     + [("models.segmenter", f"Segmenter.{m}")
@@ -42,10 +44,20 @@ CALLABLES = (
         "GlobalBundleAdjustment.__init__", "GlobalBundleAdjustment.step",
         "GlobalBundleAdjustment.abort", "GlobalBundleAdjustment.finish",
         "GlobalBundleAdjustment.run", "harvest_observations", "run_global_refinement")]
+    + [("ops.stereo", "match_stereo"), ("geometry.camera", "project_stereo"),
+       ("solvers.fundamental", "ransac_fundamental"),
+       ("solvers.initializer", "initialize_two_view"),
+       ("frontend.tracking", "fused_stereo_step"), ("frontend.tracking", "fused_mono_step")]
+    + [("io.tum", n) for n in ("TumRGBDDataset.__init__", "load_associations", "associate",
+                               "rgb_to_gray")]
+    + [("io.kitti", n) for n in ("KittiStereoDataset.__init__", "kitti_camera_config")]
+    + [("io.euroc", n) for n in ("EurocMonoDataset.__init__", "euroc_camera_config")]
 )
 TUPLES = [("geometry.sim3", "Sim3"), ("loop.vocabulary", "Vocabulary"),
           ("solvers.sim3_solver", "Sim3RansacResult"), ("solvers.sim3_solver", "Sim3OptResult"),
-          ("solvers.pose_graph", "PoseGraphProblem"), ("solvers.pose_graph", "PoseGraphResult")]
+          ("solvers.pose_graph", "PoseGraphProblem"), ("solvers.pose_graph", "PoseGraphResult"),
+          ("ops.stereo", "StereoMatchResult"), ("solvers.fundamental", "FundamentalResult"),
+          ("solvers.initializer", "InitResult")]
 
 
 def resolve(package, module, dotted):
@@ -72,7 +84,7 @@ def test_signature_matches_jax(module, name):
     t_pos, t_kw, t_plain = params(resolve("amos_slam_tpu_torch", module, name))
     assert t_pos == [RENAMED.get(n, n) for n in j_pos], (t_pos, j_pos)
     assert not j_kw, j_kw
-    assert set(t_kw) <= {"device", "sample_idx"}, t_kw
+    assert set(t_kw) <= {"device", "sample_idx", "sample_idx_f", "sample_idx_h"}, t_kw
     for n, v in j_plain.items():
         n = RENAMED.get(n, n)
         if n in t_plain:

@@ -65,9 +65,13 @@ def configs(**map_kw):
     return j, t
 
 
-def run_pair(frames, jcfg, tcfg, monkeypatch, localize_from=None):
+def run_pair(frames, jcfg, tcfg, monkeypatch, localize_from=None, chunk=0):
     """Both Systems frame by frame, JAX's draws fed to the port; from frame
-    ``localize_from`` on, both in localization mode."""
+    ``localize_from`` on, both in localization mode. With ``chunk`` = W,
+    both run track_rgbd_chunk in chunks of W instead: JAX's pending work
+    is flushed after every call, and a chunk that JAX would track frame by
+    frame (before initialization, or not OK) is fed to it frame by frame,
+    each frame flushed (tests/test_torch_system_chunk_parity.py)."""
     sim3, pnp = [], []
     orig_pnp, orig_tsim3, orig_tpnp = jlc.ransac_pnp, tlc.ransac_sim3, tlc.ransac_pnp
 
@@ -102,7 +106,21 @@ def run_pair(frames, jcfg, tcfg, monkeypatch, localize_from=None):
     monkeypatch.setattr(tlc, "ransac_sim3", port_sim3)
     monkeypatch.setattr(tlc, "ransac_pnp", port_pnp)
     js, ts = JSystem(jcfg), System(tcfg, device="cpu")
-    for i, (g, d) in enumerate(frames):
+    if chunk:
+        g = np.stack([f[0] for f in frames])
+        d = np.stack([f[1] for f in frames])
+        for c in range(0, len(frames), chunk):
+            stamps = [i / 30.0 for i in range(c, min(c + chunk, len(frames)))]
+            if js.state.name != "OK":
+                for i, t in enumerate(stamps):
+                    js.track_rgbd(g[c + i], d[c + i], t)
+                    js._flush_pending()
+            else:
+                js.track_rgbd_chunk(g[c: c + chunk], d[c: c + chunk], stamps)
+                js._flush_pending()
+            ts.track_rgbd_chunk(g[c: c + chunk], d[c: c + chunk], stamps)
+            assert not sim3 and not pnp, f"chunk {c}: the port made fewer draws than JAX"
+    for i, (g, d) in enumerate([] if chunk else frames):
         if i == localize_from:
             js.activate_localization_mode()
             ts.activate_localization_mode()

@@ -250,22 +250,21 @@ def test_save_trajectory_tum_round_trip(per_frame, tmp_path):
 
 def test_unported_features_raise(orbit):
     g, d = orbit[1][0]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        System(dataclasses.replace(cfg(), sensor="mono"), device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         System(cfg(), None, "debug_frames", device="cpu")
     slam = System(cfg(), device="cpu")
-    calls = {
-        "10": lambda: slam.track_stereo(g, g, 0.0),
-        "11": lambda: slam.save_map("x"),
-    }
-    for item, call in calls.items():
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            call()
-    for call in (lambda: slam.track_monocular(g, 0.0), lambda: slam.load_map("x")):
-        with pytest.raises(NotImplementedError):
+    for call in (lambda: slam.save_map("x"), lambda: slam.load_map("x")):
+        with pytest.raises(NotImplementedError, match="item 11"):
             call()
     assert slam.frame_id == -1 and not slam.poses_cw     # nothing was tracked
+    # stereo and monocular are ported (item 10): they construct and track;
+    # the first monocular frame becomes the initializer's reference
+    stereo = System(dataclasses.replace(cfg(), sensor="stereo"), device="cpu")
+    assert stereo.track_stereo(g, g, 0.0).shape == (4, 4)
+    assert stereo.frame_id == 0 and len(stereo.poses_cw) == 1
+    mono = System(dataclasses.replace(cfg(), sensor="mono"), device="cpu")
+    assert mono.track_monocular(g, 0.0).shape == (4, 4)
+    assert mono.frame_id == 0 and mono._mono_ref is not None
     # dynamics, stage-one masks and colour input are ported: they construct
     # and track
     dyn = System(dataclasses.replace(cfg(), use_dynamics=True), device="cpu")
