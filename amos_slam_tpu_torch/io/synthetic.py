@@ -334,3 +334,36 @@ def render_many(planes: List[Plane], poses, workers: int = 1, **kw):
     with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as ex:
         return list(ex.map(partial(render, planes, **kw), poses,
                            chunksize=max(1, len(poses) // (4 * workers))))
+
+
+_ROOMS: List[List[Plane]] = []
+
+
+def _set_rooms(rooms):
+    global _ROOMS
+    _ROOMS = rooms
+
+
+def _render_in_room(kw, job):
+    s, T = job
+    return render(_ROOMS[s], T, **kw)
+
+
+def render_rooms(rooms: List[List[Plane]], poses, workers: int = 1, **kw):
+    """(gray, depth) of every pose in every room, ``[pose][room]``: one pool
+    of ``workers`` spawned processes for all of them, each holding the rooms
+    once (multistream sequences: one camera path, a room per stream)."""
+    jobs = [(s, T) for T in poses for s in range(len(rooms))]
+    if workers <= 1:
+        out = [render(rooms[s], T, **kw) for s, T in jobs]
+    else:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        from functools import partial
+
+        with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"),
+                                 initializer=_set_rooms, initargs=(rooms,)) as ex:
+            out = list(ex.map(partial(_render_in_room, kw), jobs,
+                              chunksize=max(1, len(jobs) // (4 * workers))))
+    S = len(rooms)
+    return [out[i * S: (i + 1) * S] for i in range(len(poses))]

@@ -98,10 +98,11 @@ def read_list(path: str):
 class TumRGBDDataset:
     """Iterates (gray, depth, rgb, timestamp) over a TUM sequence directory.
 
-    ``native`` is kept for the JAX package's signature: its C++ prefetching
-    decoder (io/native_loader.py) is ROADMAP queue 1 item 11, so both
-    values decode with PIL here, the path the JAX package also takes when
-    that library is not built."""
+    With ``native`` it uses the C++ prefetching decoder
+    (:mod:`.native_loader`, built at first use) -- PNG decode + luma/depth
+    conversion happen in a worker thread pool ahead of the tracker -- and
+    falls back to PIL when that library cannot be built, as the JAX
+    package does."""
 
     def __init__(
         self,
@@ -112,6 +113,7 @@ class TumRGBDDataset:
     ):
         self.root = root
         self.depth_factor = depth_factor
+        self._native = None
         if assoc_file is None:
             assoc_file = os.path.join(root, "associations.txt")
         if os.path.exists(assoc_file):
@@ -123,11 +125,23 @@ class TumRGBDDataset:
                 TumAssociation(t, os.path.join(root, r), os.path.join(root, d))
                 for t, r, d in associate(rgbs, depths)
             ]
+        if native:
+            try:
+                from . import native_loader
+
+                self._native = native_loader.NativePrefetchLoader(
+                    [(a.timestamp, a.rgb_path, a.depth_path) for a in self.items],
+                    depth_factor=depth_factor,
+                )
+            except RuntimeError:
+                self._native = None
 
     def __len__(self):
         return len(self.items)
 
     def __getitem__(self, i: int):
+        if self._native is not None:
+            return self._native[i]
         a = self.items[i]
         rgb = _imread(a.rgb_path)
         gray = rgb_to_gray(rgb)

@@ -75,8 +75,9 @@ def match(
         bin_id = torch.clamp(
             (ang * (hist_bins / two_pi)).to(torch.int32), 0, hist_bins - 1
         ).long()
+        # out of place: under vmap the source is batched, the zeros not
         counts = torch.zeros(hist_bins, dtype=torch.int32, device=dist.device)
-        counts.scatter_add_(0, bin_id, ok.to(torch.int32))
+        counts = counts.scatter_add(0, bin_id, ok.to(torch.int32))
         _, keep_bins = top_k_stable(counts, hist_keep)
         ok &= torch.any(bin_id[:, None] == keep_bins[None, :], dim=-1)
 

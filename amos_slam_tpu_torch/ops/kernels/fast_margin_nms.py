@@ -11,6 +11,14 @@ the card and how its design meets that.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. ``fast_margin_nms.launches`` counts kernel launches.
+
+The package's wrapper goes through the custom op
+``amos_slam_tpu_torch::fast_margin_nms`` so that ``torch.func.vmap`` can
+batch it: its vmap rule folds the vmapped axis into B and makes one launch
+over (S * B, H, W) with the extents repeated S times (the counterpart of
+the Pallas kernel's ``custom_vmap`` to its batched grid, :148-167).
+Multistream SLAM vmaps the whole fused frame step over its streams, so one
+launch serves every stream's pyramid.
 """
 
 from __future__ import annotations
@@ -144,6 +152,20 @@ class _FastMarginNMS:
 
     def __call__(self, imgs: torch.Tensor,
                  extents: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The package's kernel through the vmappable custom op; a variant
+        built from another source (``library``) launches directly."""
+        if self._library is not None:
+            return self.launch(imgs, extents)
+        if imgs.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{NAME}: unsupported device {imgs.device}")
+        if extents is not None:   # before dispatch, which would pick by device
+            _check_extents(imgs, extents)
+        return torch.ops.amos_slam_tpu_torch.fast_margin_nms(imgs, extents)
+
+    def launch(self, imgs: torch.Tensor,
+               extents: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One launch on plain (unbatched) tensors: the plain version for a
+        CPU tensor, the kernel for a CUDA tensor."""
         if imgs.device.type == "cpu":
             return fast_margin_nms_plain(imgs, extents)
         if imgs.device.type != "cuda":
@@ -178,3 +200,58 @@ class _FastMarginNMS:
 
 
 fast_margin_nms = _FastMarginNMS()
+
+
+@torch.library.custom_op(f"amos_slam_tpu_torch::{NAME}", mutates_args=(),
+                         schema="(Tensor imgs, Tensor? extents) -> Tensor")
+def _fmn_op(imgs: torch.Tensor, extents: Optional[torch.Tensor]) -> torch.Tensor:
+    return fast_margin_nms.launch(imgs, extents)
+
+
+@_fmn_op.register_fake
+def _(imgs, extents):
+    return torch.empty_like(imgs)
+
+
+class _Repeated(NamedTuple):
+    ref: weakref.ref             # the extents tensor it repeats
+    version: int                 # that tensor's version counter then
+    tensor: torch.Tensor         # (S * B, 2) int32, built once
+
+
+_repeated: Dict[tuple, _Repeated] = {}
+
+
+def repeated_extents(extents: torch.Tensor, S: int) -> torch.Tensor:
+    """``extents`` repeated S times along B, built once per (extents, S)
+    and kept for as long as that tensor lives unmodified: the same tensor
+    every step, so the wrapper's tile table is found in its cache and a
+    step reads nothing to the host."""
+    global _repeated
+    key = (id(extents), S)
+    hit = _repeated.get(key)
+    if hit is not None and hit.ref() is extents and hit.version == extents._version:
+        return hit.tensor
+    _repeated = {k: v for k, v in _repeated.items() if v.ref() is not None}
+    rep = extents.repeat(S, 1).contiguous()
+    _repeated[key] = _Repeated(weakref.ref(extents), extents._version, rep)
+    return rep
+
+
+@_fmn_op.register_vmap
+def _(info, in_dims, imgs, extents):
+    """One launch over every vmapped image: (S, B, H, W) -> (S * B, H, W),
+    the extents repeated S times (or folded the same way when they are
+    vmapped too), and the result unfolded."""
+    S = info.batch_size
+    img_dim, ext_dim = in_dims
+    imgs = imgs.movedim(img_dim, 0) if img_dim is not None else imgs.expand(S, *imgs.shape)
+    B, H, W = imgs.shape[1:]
+    flat = imgs.reshape(S * B, H, W).contiguous()
+    if extents is None:
+        ext = None
+    elif ext_dim is None:
+        ext = repeated_extents(extents, S)
+    else:
+        ext = extents.movedim(ext_dim, 0).reshape(S * B, 2).contiguous()
+    return _fmn_op(flat, ext).reshape(S, B, H, W), 0

@@ -128,8 +128,9 @@ def track_local_map(
     # the largest id, independent of order).
     N = cur.valid.shape[0]
     inlier_match = res.valid & opt.inlier
+    # (out of place: under vmap the source is batched, the fill not)
     kp_point = torch.full((N,), -1, dtype=torch.int32, device=Tcw0.device)
-    kp_point.scatter_reduce_(
+    kp_point = kp_point.scatter_reduce(
         0, torch.where(inlier_match, res.idx, 0),
         torch.where(inlier_match, view.ids, -1).to(torch.int32), "amax",
         include_self=True)

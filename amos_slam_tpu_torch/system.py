@@ -51,9 +51,11 @@ builds the first two keyframes at unit median depth; the fused mono step's
 motion model projects the landmarks the last frame matched. Neither runs
 the dynamic stage (the JAX package's neither does).
 
-Not ported yet, and each raises ``NotImplementedError`` naming the ROADMAP
-item (queue 1) that brings it: map save/load and per-frame debug overlays
-(11).
+Map checkpoints (``save_map`` / ``load_map``, ``slam_map.checkpoint``)
+write the JAX package's npz, so a map saved by either package loads in the
+other. ``debug_dir`` writes each frame's keypoint overlay
+(``viewer.draw_frame``) there as ``<frame_id>_frame.png`` (``.npy``
+without PIL), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -99,11 +101,6 @@ class TrackingState(enum.Enum):
     LOST = 2
 
 
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"amos_slam_tpu_torch: {what} is not ported yet (ROADMAP queue 1 item {item})")
-
-
 class _ChunkRow(NamedTuple):
     """Row j of a chunk's stacked outputs (views, no copy)."""
     feats: FrameFeatures
@@ -132,9 +129,12 @@ class System:
     def __init__(self, cfg: Optional[SystemConfig] = None, vocabulary=None,
                  debug_dir: Optional[str] = None, *, device=None):
         self.cfg = cfg or SystemConfig()
-        if debug_dir is not None:
-            raise _not_ported("per-frame debug overlays", 11)
         self.device = resolve_device(device)
+        # per-frame debug artifact dumping (the reference writes
+        # output/<id>_rgb/_seg/_mask.png every frame, src/Tracking.cc:392-396)
+        self.debug_dir = debug_dir
+        if debug_dir:
+            os.makedirs(debug_dir, exist_ok=True)
         self.pipeline = ORBPipeline(self.cfg.orb, self.cfg.camera, self.device)
         self.cam = self.pipeline.cam
         self.map = SlamMap(self.cfg, self.cam, self.device)
@@ -310,7 +310,7 @@ class System:
             )
             self._acc_ids = view.ids
             self.prev_gray, self.prev_depth = g, d
-            return self._fast_record(res, timestamp)
+            return self._fast_record(res, timestamp, g)
 
         seg = None if seg_mask is None else self._upload(seg_mask, torch.bool)
         feats = self._extract_with_dynamics(g, d, seg, rgb=c)
@@ -327,7 +327,7 @@ class System:
         self._run_tasks()
         return Tcw
 
-    def _fast_record(self, res, timestamp) -> torch.Tensor:
+    def _fast_record(self, res, timestamp, gray) -> torch.Tensor:
         """Advance the device state chain by a fused step's result, record
         the frame, and supervise it from its (3,) count vector."""
         self._stats_acc = res.stats_acc
@@ -341,6 +341,8 @@ class System:
         self.frame_refs.append(self._ref_epoch())
         self._resolve_step(res, self.frame_id, res.sup.cpu().numpy())
         self._run_tasks()
+        if self.debug_dir is not None:
+            self._dump_debug(res.feats, gray)
         return res.Tcw
 
     def _extract_with_dynamics(self, g, d, seg, rgb=None) -> FrameFeatures:
@@ -458,7 +460,7 @@ class System:
                 stats_acc=self._stats_acc,
             )
             self._acc_ids = view.ids
-            return self._fast_record(res, timestamp)
+            return self._fast_record(res, timestamp, gl)
 
         kp_l, _, bl, pl = self.pipeline.detect_keypoints(gl)
         kp_r, _, br, pr = self.pipeline.detect_keypoints(gr)
@@ -488,7 +490,7 @@ class System:
             )
             self._acc_ids = view.ids
             self._last_pid = res.lm.kp_point_id
-            return self._fast_record(res, timestamp)
+            return self._fast_record(res, timestamp, g)
 
         kp, _, _, patches = self.pipeline.detect_keypoints(g)
         feats = self.pipeline.describe(kp, patches)
@@ -617,10 +619,23 @@ class System:
         trajectory.save_tum(path, stamps, poses)
 
     def save_map(self, path: str):
-        raise _not_ported("map checkpoints (save_map)", 11)
+        """Persist the full map (the reference's SaveMap TODO,
+        include/System.h:148-151, made trivial by tensor storage). Pending
+        landmark counters are applied first."""
+        from .slam_map.checkpoint import save_map
+
+        self._flush_stats()
+        save_map(path, self.map)
 
     def load_map(self, path: str):
-        raise _not_ported("map checkpoints (load_map)", 11)
+        from .slam_map.checkpoint import load_map
+
+        # counters gathered against the old map's view ids mean nothing now
+        self._stats_acc = None
+        self._acc_ids = None
+        load_map(path, self.map)
+        self.ref_kf = max(self.map.n_kfs - 1, 0)
+        self._epoch_key = None   # force a fresh track-time ref snapshot
 
     def global_refine(self):
         """Full-map refinement (the reference's global BA): a pose-graph +
@@ -855,7 +870,21 @@ class System:
 
         self._later(resolve)
 
+    def _dump_debug(self, feats, gray):
+        from . import viewer
+
+        overlay = viewer.draw_frame(gray, feats)
+        try:
+            from PIL import Image
+
+            Image.fromarray(overlay).save(
+                f"{self.debug_dir}/{self.frame_id:06d}_frame.png")
+        except ImportError:
+            np.save(f"{self.debug_dir}/{self.frame_id:06d}_frame.npy", overlay)
+
     def _finish_frame(self, feats, Tcw, gray, depth, timestamp):
+        if self.debug_dir is not None:
+            self._dump_debug(feats, gray)
         self.last_feats = feats
         self.last_Tcw = Tcw
         self.prev_gray = gray

@@ -154,10 +154,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 9 does (the split frame: one after the last frame's landmark
                 ids are dropped), and each _initialize_mono call's host and
                 device ms, launches and the model that won (H or F).
+ 11. multistream -- MultiStreamSLAM(SystemConfig(use_dynamics=False), 8) at
+                the 640x480 defaults (bench.py phase_multistream's config)
+                over 8 distinct rooms, default_room(seed=20 + s), on one
+                camera path (the system phase's bench motion): initialize,
+                then 32 steps, each one torch.func.vmap of the fused frame
+                step over the 8 streams with the keyframes of every stream
+                resolved before the next step. Gates: exactly one FAST
+                launch per step and one in initialize, each over (64, 480,
+                640); at steps 1, 31 and 32 the vmapped step equals 8
+                separate fused_frame_step calls on the same inputs (sup rows
+                equal, poses within 1e-5); every stream >= 2 keyframes and
+                ATE < 1 cm; local-map inliers > 50 after frame 1. Prints the
+                aggregate FPS (8 x steps / wall), per-step ms, launches and
+                device ms (4 more steps under torch.profiler) with the busy
+                share, the same step at S = 1, keyframes per stream and the
+                peak memory.
 The kernels phase also holds the FAST kernel against its plain version at
-the stereo path's (8, 376, 1241) with KITTI's level extents, and times it
-there. The last three lines are the kernels JSON, the card's name and power
-limit (nvidia-smi), and {"ok": true, "device": {...}}.
+the stereo path's (8, 376, 1241) with KITTI's level extents and at the
+multistream path's (64, 480, 640) (8 streams' pyramids through the op's
+vmap rule, the level extents repeated), times it at both, and measures the
+host time per call of a direct launch, of the custom op and of the
+vmapped call. The last three lines are the kernels JSON (the single and
+the batched route), the card's name and power limit (nvidia-smi), and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -195,6 +215,13 @@ LOOP = loop_search.PHASE8   # phase 8's sequence, blackout and kidnap
 STEREO_FRAMES = 64     # gated stereo run (phase 9)
 MONO_FRAMES = 60       # gated mono run (phase 10)
 PATH_PROFILED = 4      # fused-path frames profiled after each of them
+MS_STREAMS = 8         # multistream (phase 11): bench.py phase_multistream's S
+MS_STEPS = 32          # gated steps after initialize (the 30-frame rule makes a
+                       # keyframe per stream by step 30 at the latest)
+MS_CHECK = (1, 31, MS_STEPS)   # steps held against S separate fused steps
+MS_ATE = 0.01          # the worst stream measured 3.2 mm on an H100
+MS_PROFILED = 4        # steps profiled after the gated run
+MS_SOLO_STEPS = 8      # the same step at S = 1, then MS_PROFILED profiled
 CARD_VS_CPU_F32 = 1e-4  # card f32 net vs CPU f32 net, max error over max |CPU|
 BF16_VS_F32 = (8e-2, 2e-2)   # max and rms error over |f32|: tests/test_torch_segmenter.py
 BF16_PEAK_FLOP_S = 989e12    # H100 SXM dense bf16 tensor-core peak (data sheet)
@@ -1325,6 +1352,219 @@ def mono_phase(fmn) -> int:
     return launches
 
 
+def ms_frames():
+    """Phase 11's sequence: MS_STREAMS distinct rooms (default_room(seed=20
+    + s), as tests/test_multistream.py's live-map test) over the bench's
+    motion (the system phase's orbit), grey as a camera delivers it.
+    Returns (poses, grey (n, S, H, W), depth (n, S, H, W)) on the host."""
+    n = 1 + MS_STEPS + MS_PROFILED
+    poses = synthetic.orbit_trajectory(144, radius=0.1, advance=144 / 768)[:n]
+    rooms = [synthetic.default_room(seed=20 + s) for s in range(MS_STREAMS)]
+    frames = synthetic.render_rooms(rooms, poses, os.cpu_count() or 1)
+    gray = np.stack([[np.clip(g, 0, 255).astype(np.uint8) for g, _ in row] for row in frames])
+    depth = np.stack([[d for _, d in row] for row in frames])
+    return poses, gray.astype(np.float32), depth.astype(np.float32)
+
+
+def _host_us(fn, calls: int = 200) -> float:
+    """Host time per call of ``calls`` back-to-back calls (no sync inside),
+    after warm-up: what dispatching a call costs the host."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def multistream_phase(fmn, seq) -> int:
+    """Phase 11 (see the module docstring) on ``seq`` (ms_frames()).
+    Returns the FAST launches of its gated run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from amos_slam_tpu_torch.frontend.tracking import fused_frame_step, index_tree
+    from amos_slam_tpu_torch.parallel.multistream import MultiStreamSLAM
+
+    S = MS_STREAMS
+    poses, gray, depth = seq
+    g_dev, d_dev = _to_dev(gray, depth)
+    cfg = SystemConfig(use_dynamics=False)
+    L = cfg.orb.n_levels
+    slam = MultiStreamSLAM(cfg, S)
+
+    # every launch's shape, recorded where the op launches the kernel
+    shapes = []
+
+    def recording(imgs, extents=None):
+        shapes.append(tuple(imgs.shape))
+        return type(fmn).launch(fmn, imgs, extents)
+
+    snaps, sups, est, step_ms = {}, [], [], []
+    fmn.launch = recording
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fmn.launches = 0
+        t = time.perf_counter()
+        slam.initialize(g_dev[0], d_dev[0])
+        torch.cuda.synchronize()
+        init_ms = (time.perf_counter() - t) * 1e3
+        est.append(slam.state.Tcw)
+        t_run = time.perf_counter()
+        for k in range(1, 1 + MS_STEPS):
+            if k in MS_CHECK:
+                snaps[k] = (slam.state, slam.views)
+            t = time.perf_counter()
+            T, sup = slam.step(g_dev[k], d_dev[k])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            sups.append(np.asarray(sup).copy())
+            est.append(T)
+        run_s = time.perf_counter() - t_run
+        launches = fmn.launches
+    finally:
+        del fmn.launch
+    launch_shapes = sorted(set(shapes))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the vmapped step against S separate fused steps on the same inputs
+    vs_separate = {}
+    for k, (st0, views) in snaps.items():
+        sep = [fused_frame_step(slam.pipeline, g_dev[k, s], d_dev[k, s],
+                                index_tree(st0.feats, s), st0.Tcw[s], st0.velocity[s],
+                                index_tree(views, s), slam._r_mm, slam._r_map,
+                                min_lm=cfg.tracking.min_inliers_local_map)
+               for s in range(S)]
+        sep_sup = np.stack([r.sup.cpu().numpy() for r in sep])
+        sep_T = torch.stack([r.Tcw for r in sep])
+        vs_separate[k] = {"sup_equal": bool((sep_sup == sups[k - 1]).all()),
+                    "pose_max_abs_err": float((sep_T - est[k]).abs().max()),
+                    "view_points": [int((views.ids[s] >= 0).sum()) for s in range(S)]}
+
+    # where the time goes: MS_PROFILED more steps under torch.profiler
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for k in range(1 + MS_STEPS, 1 + MS_STEPS + MS_PROFILED):
+            slam.step(g_dev[k], d_dev[k])
+        torch.cuda.synchronize()
+    prof8 = device_profile(prof, MS_PROFILED)
+
+    # the same step at S = 1 (stream 0), timed, then profiled
+    solo = MultiStreamSLAM(cfg, 1)
+    solo.initialize(g_dev[0, :1], d_dev[0, :1])
+    solo_ms = []
+    for k in range(1, 1 + MS_SOLO_STEPS):
+        t = time.perf_counter()
+        solo.step(g_dev[k, :1], d_dev[k, :1])
+        torch.cuda.synchronize()
+        solo_ms.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for k in range(1 + MS_SOLO_STEPS, 1 + MS_SOLO_STEPS + MS_PROFILED):
+            solo.step(g_dev[k, :1], d_dev[k, :1])
+        torch.cuda.synchronize()
+    prof1 = device_profile(prof, MS_PROFILED)
+
+    est_np = torch.stack(est).cpu().numpy().astype(np.float64)     # (1 + steps, S, 4, 4)
+    gt_pos = evaluate.positions_from_cw(np.asarray(poses[: 1 + MS_STEPS]))
+    ates = [evaluate.ate_rmse(evaluate.positions_from_cw(est_np[:, s]), gt_pos)
+            for s in range(S)]
+    inliers = np.stack(sups)[:, :, 1]                               # (steps, S)
+    kfs = [m.n_kfs for m in slam.maps]
+    kf_frames = [[int(f) for f in m.kf_frame_id[: m.n_kfs]] for m in slam.maps]
+    med8 = statistics.median(step_ms)
+    print(json.dumps({
+        "multistream_phase": f"MultiStreamSLAM(SystemConfig(use_dynamics=False), {S}) "
+                             "640x480 defaults, default_room(seed=20+s)",
+        "steps": MS_STEPS, "init_ms": init_ms, "run_s": run_s,
+        "aggregate_fps": S * MS_STEPS / run_s,
+        "step_ms_median": med8, "step_ms_max": max(step_ms),
+        "step_ms_first": step_ms[0],
+        "launches_per_step": prof8["kernel_launches_per_frame"],
+        "device_ms_per_step": prof8["device_kernel_ms_per_frame"],
+        "device_busy_share": prof8["device_kernel_ms_per_frame"] / med8,
+        "top_ops_by_device_ms": prof8["top_ops_by_device_ms"][:5],
+        "solo_s1": {"step_ms_median": statistics.median(solo_ms),
+                    "fps": 1e3 / statistics.median(solo_ms),
+                    "launches_per_step": prof1["kernel_launches_per_frame"],
+                    "device_ms_per_step": prof1["device_kernel_ms_per_frame"]},
+        "fast_kernel_launches": launches, "fast_launch_shapes": launch_shapes,
+        "vmapped_vs_separate": vs_separate,
+        "ate_m": ates, "min_inliers_after_frame_1": int(inliers[1:].min()),
+        "keyframes": kfs, "keyframe_frames": kf_frames,
+        "landmarks": [m.n_pts for m in slam.maps],
+        "peak_memory_gib": peak_gib,
+        "card": timing.smi("name,power.limit"),
+    }))
+    batched = (S * L, 480, 640)
+    check(launches == MS_STEPS + 1,
+          f"{fmn_mod.NAME} launched {launches} times in {MS_STEPS} steps + initialize")
+    check(launch_shapes == [batched], f"{fmn_mod.NAME} launch shapes {launch_shapes}")
+    for k, c in vs_separate.items():
+        check(c["sup_equal"], f"vmapped step {k}: sup rows differ from separate steps")
+        check(c["pose_max_abs_err"] < 1e-5,
+              f"vmapped step {k}: poses {c['pose_max_abs_err']} from separate steps")
+    check(min(kfs) >= 2, f"multistream keyframes per stream {kfs}")
+    check(max(ates) < MS_ATE, f"multistream ATE {ates}")
+    check(int(inliers[1:].min()) > 50, f"multistream min inliers {int(inliers[1:].min())}")
+    return launches
+
+
+def multistream_kernel(fmn, sizes, pyr, levels):
+    """The multistream path's launch, in the kernels phase: the 8 streams'
+    pyramids (each room's first frame) through the op's vmap rule, one
+    launch over (64, 480, 640) with the level extents repeated 8 times,
+    exact against the plain version and timed; and the host time per call
+    of a direct launch, of the custom op and of the vmapped call on the
+    single path's pyramid ``pyr``. Returns (max abs error, the kernels
+    row's numbers)."""
+    dev = pyr.device
+    ms_poses = synthetic.orbit_trajectory(144, radius=0.1, advance=144 / 768)[:1]
+    ms_rooms = [synthetic.default_room(seed=20 + s) for s in range(MS_STREAMS)]
+    ms_gray = np.stack([np.clip(g, 0, 255).astype(np.uint8).astype(np.float32) for g, _ in
+                        synthetic.render_rooms(ms_rooms, ms_poses, os.cpu_count() or 1)[0]])
+    ms_pyr = torch.stack([pyramid.build_pyramid(g, sizes)
+                          for g in torch.from_numpy(ms_gray).to(dev)])      # (8, 8, 480, 640)
+
+    def ms_batched():
+        return torch.func.vmap(lambda p: fmn(p, levels))(ms_pyr)
+
+    before = fmn.launches
+    b_out = ms_batched()
+    check(fmn.launches == before + 1, "the vmapped FAST call did not make one launch")
+    ms_flat = ms_pyr.reshape(-1, *ms_pyr.shape[2:])
+    ms_ext = fmn_mod.repeated_extents(levels, MS_STREAMS)
+    b_plain = fmn_mod.fast_margin_nms_plain(ms_flat, ms_ext).reshape(ms_pyr.shape)
+    torch.cuda.synchronize()
+    b_err = float((b_out - b_plain).abs().max())
+    b_exact = bool(torch.equal(b_out, b_plain))
+    print(f"kernel {fmn_mod.NAME} multistream_vmapped_level_extents {tuple(ms_flat.shape)}: "
+          f"tolerance exact, equal={b_exact} max_abs_err={b_err} "
+          f"nonzero={int((b_out > 0).sum())}")
+    check(b_exact, f"{fmn_mod.NAME} differs from its plain version at the multistream shape")
+    b_ms, b_runs, b_held = timing.loop_ms(ms_batched, launches=200)
+    b_plain_ms, _, _ = timing.loop_ms(
+        lambda: fmn_mod.fast_margin_nms_plain(ms_flat, ms_ext), launches=5, hold=False)
+    b_read = MS_STREAMS * sum(h * w for h, w in sizes)
+    b_bound, b_by = timing.bound(4 * b_read, 4 * ms_flat.numel(),
+                                 fmn_mod.OPS_PER_PIXEL * b_read)
+    # what the custom op's dispatch costs the host per call
+    dispatch = {"direct_launch_us": _host_us(lambda: fmn.launch(pyr, levels)),
+                "custom_op_us": _host_us(lambda: fmn(pyr, levels)),
+                "vmapped_8_streams_us": _host_us(ms_batched)}
+    print(json.dumps({
+        "timing": fmn_mod.NAME + " vmapped", "shape": list(ms_flat.shape),
+        "extents": "level sizes repeated 8 times",
+        "ms": b_ms, "runs_ms": b_runs, "runs_queue_held": b_held, "plain_ms": b_plain_ms,
+        "bound_ms": b_bound, "bound_by": b_by, "read_px": b_read, "write_px": ms_flat.numel(),
+        "host_dispatch_per_call": dispatch,
+        "card": timing.smi("name,power.limit"),
+    }))
+    return b_err, {"ms": b_ms, "plain_ms": b_plain_ms, "bound_ms": b_bound, "bound_by": b_by}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1428,6 +1668,10 @@ def main() -> int:
         "card": timing.smi("name,power.limit"),
     }))
 
+    # the multistream path's launch
+    b_err, b_row = multistream_kernel(fmn, sizes, pyr, levels)
+    max_err = max(max_err, b_err)
+
     # 3. the main path
     odo = RGBDOdometry(cfg)
     fmn.launches = 0
@@ -1501,13 +1745,18 @@ def main() -> int:
     # 9. stereo at KITTI's canvas; 10. monocular at 640x480
     stereo_launches = timed("9 stereo", stereo_phase, fmn)
     mono_launches = timed("10 mono", mono_phase, fmn)
+    # 11. multistream: 8 streams in one vmapped step
+    ms_seq = timed("11 render", ms_frames)
+    ms_launches = timed("11 multistream", multistream_phase, fmn, ms_seq)
+    del ms_seq
     print(json.dumps({"phase_wall_s": phase_s, "total_s": time.perf_counter() - t0}))
     print(json.dumps({"fast_kernel_launches": {"odometry": launches, "system": sys_launches,
                                                "dynamics": dyn_launches,
                                                "flagship": flag_launches,
                                                "loop": loop_launches,
                                                "stereo": stereo_launches,
-                                               "mono": mono_launches}}))
+                                               "mono": mono_launches,
+                                               "multistream": ms_launches}}))
 
     print(json.dumps({"kernels": [{
         "name": fmn_mod.NAME, "route": "cuda",
@@ -1518,6 +1767,13 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": fmn_mod.NAME + "_batched", "route": "cuda",
+        "source": "amos_slam_tpu_torch/csrc/fast_margin_nms.cu",
+        "replaces": "amos_slam_tpu/ops/pallas/fast_pallas.py:128",
+        "launches": ms_launches,
+        "max_abs_err": b_err, **b_row,
         "library_ms": None,
     }]}))
     print(timing.smi("name,power.limit"))

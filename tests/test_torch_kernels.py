@@ -147,3 +147,21 @@ def test_fast_kernel_rejects_bad_extents(cuda, bad):
     }[bad]
     with pytest.raises(ValueError):
         fmn_mod.fast_margin_nms(x, ext)
+
+
+@pytest.mark.cuda
+def test_fast_kernel_vmap_rule_one_launch_over_streams(cuda):
+    """The multistream path's launch: 8 streams' (8, 480, 640) pyramids
+    through the op's vmap rule are one launch over (64, 480, 640) with the
+    level extents repeated, equal to the plain version per image."""
+    S = 8
+    fmn = fmn_mod.fast_margin_nms
+    x = _images(6, S * 8, 480, 640, low=-50).to(cuda).reshape(S, 8, 480, 640)
+    ext = torch.tensor(LEVELS, dtype=torch.int32, device=cuda)
+    before = fmn.launches
+    out = torch.func.vmap(lambda im: fmn(im, ext))(x)
+    torch.cuda.synchronize()
+    assert fmn.launches == before + 1
+    assert out.shape == x.shape
+    want = fmn_mod.fast_margin_nms_plain(x.reshape(S * 8, 480, 640), ext.repeat(S, 1))
+    assert torch.equal(out.reshape(S * 8, 480, 640), want)

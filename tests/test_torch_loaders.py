@@ -4,7 +4,8 @@ euroc.py), and the example mains (amos_slam_tpu_torch/examples/).
 The loaders read fabricated directory trees (random PNGs, as
 tests/test_dataset_loaders.py makes them) through both packages: every
 array equal, every timestamp equal; the calibrations field by field. The
-JAX TUM loader runs with ``native=False`` (the port's decodes with PIL).
+TUM loaders run with ``native=False`` (PIL) here; the native decoders are
+held to each other in tests/test_torch_native_loader.py.
 The mains: each parses ``--help``; rgbd_tum and mono_tum track three
 frames of a rendered 320x240 sequence on the CPU from a reference-style
 yaml, and write their trajectories.
@@ -107,7 +108,7 @@ def tum_tree(root, n, planes=None, poses=None, associations=True):
 @pytest.mark.parametrize("associations", [True, False])
 def test_tum_loader(tmp_path, associations):
     root = tum_tree(tmp_path / "seq", 4, associations=associations)
-    tds = ttum.TumRGBDDataset(str(root))
+    tds = ttum.TumRGBDDataset(str(root), native=False)
     same_items(tds, jtum.TumRGBDDataset(str(root), native=False))
     assert len(tds) == 4
     rgb = np.random.default_rng(3).integers(0, 255, (5, 7, 3), dtype=np.uint8)
@@ -157,3 +158,42 @@ def test_example_main_runs(tmp_path, name, capsys):
     if name == "rgbd_tum":
         assert len(rows) == 3
     assert all(len(r) == 8 for r in rows)
+
+
+def test_warp_replay_equals_jax(tmp_path, monkeypatch):
+    """io.warp_replay on a synthetic texture (the reference's real frames
+    are not in the repository): the plane replay and the real-texture room
+    built from PNGs in a directory equal the JAX package's."""
+    import types
+
+    from amos_slam_tpu.io import warp_replay as jwr
+    from amos_slam_tpu_torch.io import warp_replay as twr
+
+    rng = np.random.default_rng(4)
+    tex = synthetic._block_texture(rng, size=64).astype(np.float32)
+    tex = np.kron(tex, np.ones((2, 2), np.float32))[:96, :128]
+    cam = types.SimpleNamespace(fx=120.0, fy=118.0, cx=64.0, cy=48.0)
+    poses = synthetic.orbit_trajectory(3, radius=0.05, advance=0.1)
+    for (tg, td), (jg, jd) in zip(twr.plane_replay_sequence(tex, cam, poses),
+                                  jwr.plane_replay_sequence(tex, cam, poses)):
+        np.testing.assert_array_equal(tg, jg)
+        np.testing.assert_array_equal(td, jd)
+        assert tg.dtype == np.float32 and (td > 0).mean() > 0.5
+
+    monkeypatch.setattr(twr, "REF_INPUT_DIR", str(tmp_path / "absent"))
+    assert twr.load_reference_frame() is None and twr.real_room(0) is None
+    for i in range(2):
+        img = rng.integers(0, 255, (300, 320), dtype=np.uint8)
+        Image.fromarray(img).save(tmp_path / f"{i}.png")
+    monkeypatch.setattr(twr, "REF_INPUT_DIR", str(tmp_path))
+    monkeypatch.setattr(jwr, "REF_INPUT_DIR", str(tmp_path))
+    np.testing.assert_array_equal(twr.load_reference_frame(str(tmp_path / "1.png")),
+                                  jwr.load_reference_frame(str(tmp_path / "1.png")))
+    tr, jr = twr.real_room(seed=3), jwr.real_room(seed=3)
+    assert len(tr) == len(jr) == 6
+    for a, b in zip(tr, jr):
+        assert (a.axis, a.value, a.bounds, a.tex_scale) == (b.axis, b.value, b.bounds, b.tex_scale)
+        np.testing.assert_array_equal(a.texture, b.texture)
+    (tp, ti), (jp, ji) = twr.real_room_with_mover(1, t=0.5), jwr.real_room_with_mover(1, t=0.5)
+    assert ti == ji == 6 and tp[ti].tex_anchor == jp[ji].tex_anchor
+    np.testing.assert_array_equal(tp[ti].texture, jp[ji].texture)

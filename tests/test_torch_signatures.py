@@ -7,8 +7,9 @@ The port may add keyword-only parameters (``device``; ``sample_idx``, or
 JAX draws with a key), and renames on purpose only what torch cannot take:
 a ``jax.random`` key becomes a ``torch.Generator`` (RENAMED). Covered: the
 System and Segmenter entry points, the public functions, classes and
-methods of the loop-closing modules, the stereo / monocular modules and the
-dataset loaders, with the fields of their NamedTuples.
+methods of the loop-closing modules, the stereo / monocular modules, the
+dataset loaders, multistream SLAM, map checkpoints, the viewer, the native
+loader and the real-imagery replay, with the fields of their NamedTuples.
 """
 
 import importlib
@@ -22,7 +23,8 @@ PLAIN = (int, float, bool, str, tuple, type(None))
 SYSTEM = ["__init__", "track_rgbd", "track_rgbd_chunk", "save_trajectory_tum",
           "save_trajectory_kitti", "save_keyframe_trajectory_tum", "corrected_poses_np",
           "global_refine", "shutdown", "reset", "poses_np", "activate_localization_mode",
-          "deactivate_localization_mode", "track_stereo", "track_monocular"]
+          "deactivate_localization_mode", "track_stereo", "track_monocular", "save_map",
+          "load_map"]
 CALLABLES = (
     [("system", f"System.{m}") for m in SYSTEM]
     + [("models.segmenter", f"Segmenter.{m}")
@@ -52,12 +54,24 @@ CALLABLES = (
                                "rgb_to_gray")]
     + [("io.kitti", n) for n in ("KittiStereoDataset.__init__", "kitti_camera_config")]
     + [("io.euroc", n) for n in ("EurocMonoDataset.__init__", "euroc_camera_config")]
+    + [("parallel.multistream", n) for n in (
+        "make_stream_mesh", "empty_views", "init_state", "multistream_step", "shard_step",
+        "MultiStreamSLAM.__init__", "MultiStreamSLAM.initialize", "MultiStreamSLAM.step",
+        "MultiStreamSLAM.flush", "MultiStreamSLAM._refresh_views",
+        "MultiStreamSLAM._resolve_step", "MultiStreamSLAM._insert_keyframes")]
+    + [("slam_map.checkpoint", n) for n in ("save_map", "load_map")]
+    + [("viewer", n) for n in ("save_ply", "dump_map", "plot_topdown", "draw_frame")]
+    + [("io.native_loader", n) for n in ("available", "decode_png",
+                                         "NativePrefetchLoader.__init__")]
+    + [("io.warp_replay", n) for n in ("plane_replay_frame", "plane_replay_sequence",
+                                       "load_reference_frame", "load_reference_frames",
+                                       "real_room", "real_room_with_mover")]
 )
 TUPLES = [("geometry.sim3", "Sim3"), ("loop.vocabulary", "Vocabulary"),
           ("solvers.sim3_solver", "Sim3RansacResult"), ("solvers.sim3_solver", "Sim3OptResult"),
           ("solvers.pose_graph", "PoseGraphProblem"), ("solvers.pose_graph", "PoseGraphResult"),
           ("ops.stereo", "StereoMatchResult"), ("solvers.fundamental", "FundamentalResult"),
-          ("solvers.initializer", "InitResult")]
+          ("solvers.initializer", "InitResult"), ("parallel.multistream", "StreamState")]
 
 
 def resolve(package, module, dotted):

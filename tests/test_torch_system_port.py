@@ -2,8 +2,9 @@
 bookkeeping, chunk vs per-frame tracking, a LOST episode, keyframe
 capacity growth and compaction (tests/test_long_sequence.py's cases at
 320x240), trajectory export, the snapshot that local BA must not reach,
-the features that still raise NotImplementedError, and a given vocabulary
-with global_refine.
+the features that once raised NotImplementedError (debug overlays, map
+checkpoints, stereo, mono, dynamics), and a given vocabulary with
+global_refine.
 
 Gates: ATE < 1.5 cm on the orbit sequence for the per-frame and the chunk
 path; < 5 cm on the 80-frame exploratory sweep; device and host
@@ -248,14 +249,21 @@ def test_save_trajectory_tum_round_trip(per_frame, tmp_path):
     np.testing.assert_allclose(rows[:, :, 3], evaluate.positions_from_cw(est), atol=1e-5)
 
 
-def test_unported_features_raise(orbit):
+def test_unported_features_raise(orbit, tmp_path):
+    """The features that once raised NotImplementedError construct and run."""
     g, d = orbit[1][0]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        System(cfg(), None, "debug_frames", device="cpu")
+    # per-frame debug overlays and map checkpoints are ported (item 11)
+    dbg_dir = tmp_path / "debug_frames"
+    dbg = System(cfg(), None, str(dbg_dir), device="cpu")
+    for i, (gi, di) in enumerate(orbit[1][:3]):
+        dbg.track_rgbd(gi, di, i / 30.0)
+    assert sorted(p.name for p in dbg_dir.iterdir()) == [f"{i:06d}_frame.png" for i in range(3)]
+    dbg.save_map(str(tmp_path / "map.npz"))
     slam = System(cfg(), device="cpu")
-    for call in (lambda: slam.save_map("x"), lambda: slam.load_map("x")):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            call()
+    slam.load_map(str(tmp_path / "map.npz"))
+    assert (slam.map.n_kfs, slam.map.n_pts) == (dbg.map.n_kfs, dbg.map.n_pts) != (0, 0)
+    assert torch.equal(slam.map.arrays.pt_pos, dbg.map.arrays.pt_pos)
+    assert slam.ref_kf == dbg.map.n_kfs - 1
     assert slam.frame_id == -1 and not slam.poses_cw     # nothing was tracked
     # stereo and monocular are ported (item 10): they construct and track;
     # the first monocular frame becomes the initializer's reference
