@@ -19,7 +19,8 @@ frontend   ORB extraction pipeline, tracking, the geometric dynamic stage.
 slam_map   Map state, local-map tracking, triangulation, maintenance.
 loop       BoW vocabulary, keyframe database, loop closing, relocalization,
            global BA (data/default_vocab.npz is the default vocabulary).
-models     YOLACT stage one: ResNet-FPN, ProtoNet, fast-NMS, Segmenter.
+models     YOLACT stage one: ResNet-FPN, ProtoNet, fast-NMS, Segmenter;
+           its training (configs, data, multibox loss, SGD step) and mAP.
 io         Synthetic scenes, TUM / KITTI / EuRoC loaders, trajectory IO,
            ATE/RPE evaluation.
 examples   The reference's six example mains against the port.

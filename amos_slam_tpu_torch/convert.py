@@ -7,7 +7,7 @@ through numpy, so a test can feed both packages identical state; this module
 never imports jax (``np.asarray`` reads a jax array). :func:`slam_map_from`
 carries a whole map across, device arrays and host mirrors;
 :func:`vocabulary_from` a BoW vocabulary; :func:`yolact_state_dict` YOLACT
-weights.
+weights; :func:`train_state_from` a YOLACT training state.
 """
 
 from __future__ import annotations
@@ -105,7 +105,8 @@ def vocabulary_from(src, device=None):
 
 
 def yolact_state_dict(flax_params) -> dict:
-    """The port's YOLACT ``state_dict`` (f32 CPU tensors) holding the JAX
+    """The port's YOLACT ``state_dict`` (f32 CPU tensors; float64 leaves,
+    from a JAX tree made with x64 enabled, stay float64) holding the JAX
     package's Yolact parameters (a ``{"params": ...}`` tree of arrays):
     the inverse of the JAX package's ``port_state_dict``. Conv kernels go
     from (kh, kw, in, out) to (out, in, kh, kw); batch norm's
@@ -126,11 +127,44 @@ def yolact_state_dict(flax_params) -> dict:
         leaf = tree
         for name in path:
             leaf = leaf[name]
-        a = np.array(leaf, np.float32)
+        a = np.array(leaf)
+        a = a if a.dtype == np.float64 else a.astype(np.float32)
         if path[-1] == "kernel":
             a = np.transpose(a, (3, 2, 0, 1))
         out[key] = torch.from_numpy(np.ascontiguousarray(a))
     return out
+
+
+def train_state_from(jax_train_state, *, device=None):
+    """The port's :class:`~.models.train.TrainState` holding the JAX
+    package's YOLACT ``TrainState`` (read duck-typed), on ``device`` (the
+    CUDA card by default): the params through :func:`yolact_state_dict`,
+    optax's momentum trace (the ``TraceState`` inside the chain's state)
+    under the same keys, and the step count."""
+    from .device import resolve_device
+    from .models.train import TrainState
+
+    device = resolve_device(device)
+
+    def find_trace(state):
+        if hasattr(state, "trace"):
+            return state.trace
+        for sub in state if isinstance(state, tuple) else ():
+            found = find_trace(sub)
+            if found is not None:
+                return found
+        return None
+
+    trace = find_trace(jax_train_state.opt_state)
+    if trace is None:
+        raise ValueError("the optimizer state holds no momentum trace")
+
+    def on_device(tree):
+        return {k: v.to(device) for k, v in yolact_state_dict(tree).items()}
+
+    return TrainState(on_device(jax_train_state.params), on_device(trace),
+                      torch.tensor(int(np.asarray(jax_train_state.step)), dtype=torch.int32,
+                                   device=device))
 
 
 def tree_to_numpy(tree) -> dict:

@@ -170,6 +170,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 device ms (4 more steps under torch.profiler) with the busy
                 share, the same step at S = 1, keyframes per stream and the
                 peak memory.
+ 12. train  -- YOLACT training (models/{configs,data,train,eval}.py), which
+                runs no kernel of the port's own (torch ops, cuDNN convs,
+                f32 with TF32 off). (1) get_config("yolact_resnet50"): the
+                flagship Segmenter's ResNet-50 (3, 4, 6, 3) and 81 classes,
+                550 px, max_objs 16, batch 8, proto (138, 138), Flax's init
+                from seed 0, fed by DataLoader(SyntheticShapes(size=550),
+                AugmentConfig(), seed=0): first one step at batch 2 on the
+                card against the port's CPU path on the same weights and
+                batch (loss parts within 1e-4 relative, every tensor's
+                update -lr x momentum within 1e-3 of its max |update|),
+                then 3 warm-up and 20 timed steps. Gates: loss and its three
+                parts finite at every step, no out-of-memory. Prints step ms
+                (median of CUDA-event times and of wall times), images/s,
+                launches and device ms of one profiled step, the busy share,
+                peak memory, the loader's wait per step and its host ms per
+                batch, and the conv FLOPs of forward + backward (3 x the
+                forward's, counted by hooks) against the f32 peak. (2) The
+                training proof of tests/test_yolact_data.py: yolact_tiny,
+                SyntheticShapes(n=64, seed=11), batch 4, AugmentConfig(
+                expand=False, crop=False), 60 steps; gate: the mean loss of
+                the last 5 steps < 0.6 x the mean of the first 3; then, as a
+                reading, detect + assemble_masks + evaluate_detections box
+                and mask mAP on 16 held-out shapes.
 The kernels phase also holds the FAST kernel against its plain version at
 the stereo path's (8, 376, 1241) with KITTI's level extents and at the
 multistream path's (64, 480, 640) (8 streams' pyramids through the op's
@@ -225,6 +248,15 @@ MS_SOLO_STEPS = 8      # the same step at S = 1, then MS_PROFILED profiled
 CARD_VS_CPU_F32 = 1e-4  # card f32 net vs CPU f32 net, max error over max |CPU|
 BF16_VS_F32 = (8e-2, 2e-2)   # max and rms error over |f32|: tests/test_torch_segmenter.py
 BF16_PEAK_FLOP_S = 989e12    # H100 SXM dense bf16 tensor-core peak (data sheet)
+TRAIN_CFG = "yolact_resnet50"   # phase 12: the flagship Segmenter's backbone and classes
+TRAIN_WARMUP, TRAIN_STEPS = 3, 20
+TRAIN_PARITY_B = 2             # batch of the one-step card-vs-CPU check
+# card vs CPU, one step: loss parts (relative), each tensor's update over its max |update|
+TRAIN_F32 = (1e-5, 3e-2)       # measured 3.1e-7 and 7.5e-3 on an H100 (see train_card_vs_cpu)
+TRAIN_F64 = (1e-12, 1e-10)     # measured <= 2.9e-16 and 1.1e-14 on an H100
+F32_PEAK_FLOP_S = 67e12        # H100 SXM f32 outside the tensor cores (data sheet)
+PROOF_STEPS, PROOF_RATIO = 60, 0.6   # tests/test_yolact_data.py's training proof
+PROOF_HELD_OUT = 16
 
 
 def check(cond: bool, msg: str) -> None:
@@ -857,6 +889,18 @@ def dynamics_phase(fmn, seq) -> int:
     return phase_launches
 
 
+def _conv_flop_hooks(model, add) -> list:
+    """Forward hooks that call ``add(part, n)`` with 2 x the multiply-adds
+    of every conv of ``model`` per call, ``part`` its top-level module."""
+    def conv_hook(mod, args, out, part):
+        add(part, 2 * mod.in_channels // mod.groups * mod.kernel_size[0] * mod.kernel_size[1]
+            * out.numel())
+
+    return [m.register_forward_hook(lambda mod, a, o, part=name.split(".")[0]:
+                                    conv_hook(mod, a, o, part))
+            for name, m in model.named_modules() if isinstance(m, torch.nn.Conv2d)]
+
+
 def count_flops(seg, rgbs) -> dict:
     """The operations of one ``person_mask_batch(rgbs)``, counted from the
     shapes by forward hooks: 2 x the multiply-adds of every conv (bf16 on
@@ -870,21 +914,13 @@ def count_flops(seg, rgbs) -> dict:
     def add(part, n):
         flops[part] = flops.get(part, 0) + n
 
-    def conv_hook(mod, args, out, part):
-        add(part, 2 * mod.in_channels // mod.groups * mod.kernel_size[0] * mod.kernel_size[1]
-            * out.numel())
-
     def resize_hook(mod, args, out):
         x, (oh, ow) = args
         lead, (h, w) = x.numel() // (x.shape[-2] * x.shape[-1]), x.shape[-2:]
         first, second = (oh * h * w, oh * w * ow) if mod.h_first else (h * w * ow, oh * h * ow)
         add("resize_f32", 2 * lead * (first + second))
 
-    hooks = []
-    for name, m in seg.model.named_modules():
-        if isinstance(m, torch.nn.Conv2d):
-            hooks.append(m.register_forward_hook(
-                lambda mod, a, o, part=name.split(".")[0]: conv_hook(mod, a, o, part)))
+    hooks = _conv_flop_hooks(seg.model, add)
     for m in list(seg.model.modules()) + [seg._resize_in, seg._resize_out]:
         if isinstance(m, Resize):
             hooks.append(m.register_forward_hook(resize_hook))
@@ -1565,6 +1601,257 @@ def multistream_kernel(fmn, sizes, pyr, levels):
     return b_err, {"ms": b_ms, "plain_ms": b_plain_ms, "bound_ms": b_bound, "bound_by": b_by}
 
 
+def _one_step(model, params, priors, cfg, batch, dev, dtype):
+    """One train step of ``params`` on ``batch`` on ``dev`` in ``dtype``:
+    ({"loss", "loc", "conf", "mask"}, per tensor the update -lr x momentum
+    on the CPU in float64)."""
+    from amos_slam_tpu_torch.models.train import GTBatch, make_train_step
+
+    init, step = make_train_step(model.to(dev, dtype), priors.to(dev), cfg.lr, cfg.momentum,
+                                 cfg.weight_decay)
+    b = GTBatch(batch.images.to(dev, dtype), batch.boxes.to(dev, dtype), batch.labels.to(dev),
+                batch.masks.to(dev, dtype))
+    state, loss, aux = step(init({k: v.to(dev, dtype) for k, v in params.items()}), b)
+    return ({"loss": float(loss), **{k: float(v) for k, v in aux.items()}},
+            {k: (-cfg.lr * m).to("cpu", torch.float64) for k, m in state.opt_state.items()})
+
+
+def _step_gap(a, b) -> dict:
+    """Two runs of ``_one_step``, ``b`` the reference: the loss parts'
+    relative errors, and per tensor the update's max error over its max
+    |update| (the worst tensor and the median)."""
+    (pa, ua), (pb, ub) = a, b
+    upd = {k: float((ua[k] - u).abs().max()) / max(float(u.abs().max()), 1e-300)
+           for k, u in ub.items()}
+    worst = max(upd, key=upd.get)
+    return {"loss_part_rel_err": {k: abs(pa[k] - v) / abs(v) for k, v in pb.items()},
+            "update_err_over_max_worst": upd[worst], "worst_tensor": worst,
+            "update_err_over_max_median": statistics.median(upd.values())}
+
+
+def train_card_vs_cpu(model, params, priors, cfg, batch) -> dict:
+    """One step of the same weights on the same batch on the CPU and on
+    the card, in f32 (the training dtype) and in float64. In f32 the
+    loss parts agree to ~1e-7 but the updates do not: on the H100 at this
+    width the card's f32 step departs from its own float64 step by 4.6e-4
+    of max |update| per tensor (median; 7.5e-3 worst), the CPU's by 1.3e-6
+    (1.0e-3 worst: a ReLU unit whose input lies within rounding of 0 takes
+    either side, and its gradient jumps). In float64 the two devices agree
+    to ~1e-14: the port computes the same step on both, and the f32 gap is
+    the precision of cuDNN's f32 convolution algorithms."""
+    dev = "cuda"
+    runs = {(d, str(dt)[6:]): _one_step(model, params, priors, cfg, batch, d, dt)
+            for d in ("cpu", dev) for dt in (torch.float32, torch.float64)}
+    out = {"loss_parts": {f"{d}_{dt}": r[0] for (d, dt), r in runs.items()},
+           "finite": all(np.isfinite(v) for r in runs.values() for v in r[0].values()),
+           "f32_card_vs_cpu": _step_gap(runs[(dev, "float32")], runs[("cpu", "float32")]),
+           "f64_card_vs_cpu": _step_gap(runs[(dev, "float64")], runs[("cpu", "float64")])}
+    for d in ("cpu", dev):
+        out[f"f32_vs_f64_{d}"] = _step_gap(runs[(d, "float32")], runs[(d, "float64")])
+    model.to(torch.float32)
+    return out
+
+
+def train_full_width() -> dict:
+    """Phase 12 (1): yolact_resnet50 at its width and batch, Flax's init
+    from seed 0, fed by the port's DataLoader over SyntheticShapes at 550
+    with the default augmentations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from amos_slam_tpu_torch.models import configs, data
+    from amos_slam_tpu_torch.models.segmenter import flax_init_
+    from amos_slam_tpu_torch.models.train import make_train_step
+
+    cfg = configs.get_config(TRAIN_CFG)
+    t = time.perf_counter()
+    model = cfg.build(device="cpu")
+    flax_init_(model, torch.Generator().manual_seed(0))
+    params = {k: v.clone() for k, v in model.state_dict().items()}
+    init_s = time.perf_counter() - t
+    priors = torch.from_numpy(cfg.priors())
+    ds = data.SyntheticShapes(size=cfg.img_size)
+
+    # card vs CPU: one step at batch TRAIN_PARITY_B, same weights and batch
+    rng = np.random.default_rng(0)
+    few = [data.augment_sample(ds[i], rng) for i in range(TRAIN_PARITY_B)]
+    t = time.perf_counter()
+    parity = train_card_vs_cpu(
+        model, params, priors, cfg,
+        data.samples_to_gt_batch(few, cfg.img_size, cfg.max_objs, cfg.proto_shape, device="cpu"))
+    parity["seconds"] = time.perf_counter() - t
+    print(json.dumps({"train_card_vs_cpu": f"{TRAIN_CFG}, batch {TRAIN_PARITY_B}, one step",
+                      **parity}))
+    check(parity["finite"], f"train step not finite {parity['loss_parts']}")
+    for key, (part_tol, upd_tol) in (("f32_card_vs_cpu", TRAIN_F32), ("f64_card_vs_cpu", TRAIN_F64)):
+        gap = parity[key]
+        check(max(gap["loss_part_rel_err"].values()) < part_tol,
+              f"train {key} loss parts {gap['loss_part_rel_err']}")
+        check(gap["update_err_over_max_worst"] < upd_tol,
+              f"train {key} update {gap['update_err_over_max_worst']} ({gap['worst_tensor']})")
+
+    # the run: TRAIN_WARMUP + TRAIN_STEPS steps at batch cfg.batch_size
+    model.cuda()
+    priors = priors.cuda()
+    init, step = make_train_step(model, priors, cfg.lr, cfg.momentum, cfg.weight_decay)
+    state = init({k: v.cuda() for k, v in params.items()})
+    dl = data.DataLoader(ds, cfg.batch_size, cfg.img_size, cfg.max_objs, cfg.proto_shape,
+                         data.AugmentConfig(), seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    try:
+        t_run = None
+        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+            if i == TRAIN_WARMUP:
+                t_run = time.perf_counter()
+            t0 = time.perf_counter()
+            batch = next(dl)
+            t1 = time.perf_counter()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            state, loss, aux = step(state, batch)
+            e1.record()
+            vals = torch.stack([loss, aux["loc"], aux["conf"], aux["mask"]]).tolist()
+            t2 = time.perf_counter()
+            rows.append({"wait_ms": (t1 - t0) * 1e3, "step_ms": (t2 - t1) * 1e3,
+                         "event_ms": e0.elapsed_time(e1), "loss": vals})
+            check(all(np.isfinite(v) for v in vals), f"train step {i} not finite: {vals}")
+        run_s = time.perf_counter() - t_run
+        peak = torch.cuda.max_memory_allocated()
+        # one more step under the profiler
+        batch = next(dl)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, loss, aux = step(state, batch)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        dl.stop()
+    prof_out = device_profile(prof, 1)
+
+    # the loader's host work per batch, alone on the host
+    rng = np.random.default_rng(1)
+    load_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        samples = [data.augment_sample(ds[int(i)], rng)
+                   for i in rng.integers(0, len(ds), cfg.batch_size)]
+        data.samples_to_gt_batch(samples, cfg.img_size, cfg.max_objs, cfg.proto_shape)
+        torch.cuda.synchronize()
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+
+    # conv FLOPs of one forward at this batch, x 3 for forward + backward
+    flops = {}
+    hooks = _conv_flop_hooks(model, lambda part, n: flops.__setitem__(part, flops.get(part, 0) + n))
+    try:
+        with torch.no_grad():
+            torch.func.functional_call(model, state.params, (batch.images,))
+    finally:
+        for h in hooks:
+            h.remove()
+    train_flop = 3 * sum(flops.values())
+    steady = rows[TRAIN_WARMUP:]
+    step_ms = statistics.median(r["step_ms"] for r in steady)
+    event_ms = statistics.median(r["event_ms"] for r in steady)
+    bound_ms = train_flop / F32_PEAK_FLOP_S * 1e3
+    result = {
+        "train": f"{TRAIN_CFG}: backbone {cfg.backbone_layers}, {cfg.num_classes} classes, "
+                 f"{cfg.img_size} px, batch {cfg.batch_size}, max_objs {cfg.max_objs}, "
+                 f"proto {cfg.proto_shape}, f32 (TF32 off), SGD lr {cfg.lr} momentum "
+                 f"{cfg.momentum} wd {cfg.weight_decay}; SyntheticShapes({cfg.img_size}) with "
+                 "AugmentConfig() through DataLoader(seed=0)",
+        "init_s_cpu": init_s, "warmup_steps": TRAIN_WARMUP, "timed_steps": TRAIN_STEPS,
+        "step_ms_event_median": event_ms, "step_ms_wall_median": step_ms,
+        "images_per_s_step": cfg.batch_size / step_ms * 1e3,
+        "images_per_s_run": cfg.batch_size * TRAIN_STEPS / run_s,
+        "loader_wait_ms_median": statistics.median(r["wait_ms"] for r in steady),
+        "loader_host_ms_per_batch": load_ms,
+        "profiled_step_wall_ms": prof_ms, **prof_out,
+        "device_busy_share_unprofiled": prof_out["device_kernel_ms_per_frame"] / step_ms,
+        "peak_memory_gib": peak / 2 ** 30,
+        "conv_gflop_forward_by_part": {k: v / 1e9 for k, v in flops.items()},
+        "conv_gflop_train_step": train_flop / 1e9,
+        "bound_ms": bound_ms, "bound_by": "operations",
+        "bound_peak": "67 TFLOP/s f32 outside the tensor cores (H100 SXM data sheet), convs only",
+        "flop_share_of_peak": bound_ms / event_ms,
+        "losses_first_last": [rows[0]["loss"], rows[-1]["loss"]],
+        "step_ms_wall": [r["step_ms"] for r in rows],
+        "card": timing.smi("name,power.limit"),
+    }
+    print(json.dumps(result))
+    del state, model
+    torch.cuda.empty_cache()
+    return result
+
+
+def train_proof() -> dict:
+    """Phase 12 (2): tests/test_yolact_data.py::test_training_learns_synthetic_shapes's
+    settings on the card, then the trained net's mAP on held-out shapes."""
+    from amos_slam_tpu_torch.models import configs, data
+    from amos_slam_tpu_torch.models.eval import evaluate_detections
+    from amos_slam_tpu_torch.models.segmenter import flax_init_
+    from amos_slam_tpu_torch.models.train import make_train_step
+    from amos_slam_tpu_torch.models.yolact import assemble_masks, detect
+
+    cfg = configs.yolact_tiny
+    model = cfg.build(device="cpu")
+    flax_init_(model, torch.Generator().manual_seed(0))
+    model.cuda()
+    priors = torch.from_numpy(cfg.priors()).cuda()
+    dl = data.DataLoader(data.SyntheticShapes(n=64, size=cfg.img_size, seed=11), batch_size=4,
+                         img_size=cfg.img_size, max_objs=cfg.max_objs, proto_hw=cfg.proto_shape,
+                         seed=2, augment=data.AugmentConfig(expand=False, crop=False))
+    init, step = make_train_step(model, priors, lr=cfg.lr)
+    state = init(model.state_dict())
+    losses = []
+    t = time.perf_counter()
+    try:
+        for _ in range(PROOF_STEPS):
+            state, loss, _ = step(state, next(dl))
+            losses.append(float(loss))
+    finally:
+        dl.stop()
+    run_s = time.perf_counter() - t
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-5:]))
+
+    held = data.SyntheticShapes(n=PROOF_HELD_OUT, size=cfg.img_size, seed=99)
+    samples = [held[i] for i in range(PROOF_HELD_OUT)]
+    batch = data.samples_to_gt_batch(samples, cfg.img_size, cfg.max_objs, cfg.proto_shape)
+    with torch.no_grad():
+        loc, conf, coef, proto = torch.func.functional_call(model, state.params, (batch.images,))
+    det = detect(loc, conf, coef, priors)
+    masks = assemble_masks(proto, det).cpu().numpy()
+    det = type(det)(*(x.cpu().numpy() for x in det))
+    preds, gts = [], []
+    for b in range(PROOF_HELD_OUT):
+        v, g = det.valid[b], batch.labels[b].cpu().numpy() >= 0
+        preds.append({"boxes": det.boxes[b][v], "scores": det.scores[b][v],
+                      "classes": det.classes[b][v], "masks": masks[b][v]})
+        gts.append({"boxes": batch.boxes[b].cpu().numpy()[g],
+                    "classes": batch.labels[b].cpu().numpy()[g],
+                    "masks": batch.masks[b].cpu().numpy()[g] > 0.5})
+    result = {
+        "train_proof": f"yolact_tiny, SyntheticShapes(n=64, seed=11), batch 4, "
+                       f"AugmentConfig(expand=False, crop=False), {PROOF_STEPS} steps",
+        "loss_first3_mean": first, "loss_last5_mean": last, "ratio": last / first,
+        "losses": losses, "run_s": run_s,
+        "held_out": f"SyntheticShapes(n={PROOF_HELD_OUT}, seed=99), a reading",
+        "box": evaluate_detections(preds, gts),
+        "mask": evaluate_detections(preds, gts, iou_type="mask"),
+    }
+    print(json.dumps(result))
+    check(all(np.isfinite(losses)), "train proof loss not finite")
+    check(last < PROOF_RATIO * first, f"train proof: last {last} not < {PROOF_RATIO} x {first}")
+    return result
+
+
+def train_phase() -> None:
+    """Phase 12 (see the module docstring)."""
+    train_full_width()
+    train_proof()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1749,6 +2036,8 @@ def main() -> int:
     ms_seq = timed("11 render", ms_frames)
     ms_launches = timed("11 multistream", multistream_phase, fmn, ms_seq)
     del ms_seq
+    # 12. YOLACT training at yolact_resnet50's width, and the tiny proof
+    timed("12 train", train_phase)
     print(json.dumps({"phase_wall_s": phase_s, "total_s": time.perf_counter() - t0}))
     print(json.dumps({"fast_kernel_launches": {"odometry": launches, "system": sys_launches,
                                                "dynamics": dyn_launches,

@@ -165,3 +165,38 @@ def test_fast_kernel_vmap_rule_one_launch_over_streams(cuda):
     assert out.shape == x.shape
     want = fmn_mod.fast_margin_nms_plain(x.reshape(S * 8, 480, 640), ext.repeat(S, 1))
     assert torch.equal(out.reshape(S * 8, 480, 640), want)
+
+
+@pytest.mark.cuda
+def test_yolact_tiny_train_step_card_equals_cpu(cuda):
+    """The training path runs no kernel of the port's own (torch ops, cuDNN
+    convs, TF32 off); one yolact_tiny step at batch 4 on the card against
+    the CPU path, same weights and batch: loss parts within 1e-4 relative,
+    every tensor's update (-lr x momentum) within 1e-3 of its max |update|.
+    chip_smoke.py phase 12 makes the same check at yolact_resnet50's width."""
+    from amos_slam_tpu_torch.models import configs, data, train
+    from amos_slam_tpu_torch.models.segmenter import flax_init_
+
+    cfg = configs.yolact_tiny
+    model = cfg.build(device="cpu")
+    flax_init_(model, torch.Generator().manual_seed(0))
+    params = {k: v.clone() for k, v in model.state_dict().items()}
+    ds = data.SyntheticShapes(n=4, size=cfg.img_size, seed=11)
+    rng = np.random.default_rng(0)
+    samples = [data.augment_sample(ds[i], rng) for i in range(4)]
+    out = {}
+    for dev in ("cpu", cuda):
+        batch = data.samples_to_gt_batch(samples, cfg.img_size, cfg.max_objs, cfg.proto_shape,
+                                         device=dev)
+        init, step = train.make_train_step(model.to(dev), torch.from_numpy(cfg.priors()).to(dev),
+                                           cfg.lr, cfg.momentum, cfg.weight_decay)
+        state, loss, aux = step(init({k: v.to(dev) for k, v in params.items()}), batch)
+        assert state.params["backbone.conv1.weight"].device.type == torch.device(dev).type
+        out[str(dev)] = ({"loss": float(loss), **{k: float(v) for k, v in aux.items()}},
+                         {k: (-cfg.lr * m).cpu() for k, m in state.opt_state.items()})
+    (parts, upd), (c_parts, c_upd) = out["cuda"], out["cpu"]
+    for k, v in c_parts.items():
+        assert np.isfinite(parts[k]) and abs(parts[k] - v) <= 1e-4 * abs(v), (k, parts[k], v)
+    for k, u in c_upd.items():
+        err = float((upd[k] - u).abs().max())
+        assert err <= 1e-3 * float(u.abs().max()), (k, err, float(u.abs().max()))

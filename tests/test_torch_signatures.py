@@ -9,7 +9,8 @@ a ``jax.random`` key becomes a ``torch.Generator`` (RENAMED). Covered: the
 System and Segmenter entry points, the public functions, classes and
 methods of the loop-closing modules, the stereo / monocular modules, the
 dataset loaders, multistream SLAM, map checkpoints, the viewer, the native
-loader and the real-imagery replay, with the fields of their NamedTuples.
+loader, the real-imagery replay and YOLACT's configs, data pipeline,
+training and eval, with the fields of their NamedTuples.
 """
 
 import importlib
@@ -66,12 +67,22 @@ CALLABLES = (
     + [("io.warp_replay", n) for n in ("plane_replay_frame", "plane_replay_sequence",
                                        "load_reference_frame", "load_reference_frames",
                                        "real_room", "real_room_with_mover")]
+    + [("models.configs", n) for n in ("YolactConfig.build", "YolactConfig.priors", "register",
+                                       "get_config")]
+    + [("models.data", n) for n in (
+        "decode_uncompressed_rle", "decode_compressed_rle", "polygons_to_mask",
+        "annotation_to_mask", "CocoDataset.__init__", "SyntheticShapes.__init__",
+        "augment_sample", "samples_to_gt_batch", "DataLoader.__init__", "DataLoader.stop")]
+    + [("models.train", n) for n in ("multibox_loss", "make_train_step")]
+    + [("models.eval", n) for n in ("box_iou", "mask_iou", "average_precision",
+                                    "evaluate_detections")]
 )
 TUPLES = [("geometry.sim3", "Sim3"), ("loop.vocabulary", "Vocabulary"),
           ("solvers.sim3_solver", "Sim3RansacResult"), ("solvers.sim3_solver", "Sim3OptResult"),
           ("solvers.pose_graph", "PoseGraphProblem"), ("solvers.pose_graph", "PoseGraphResult"),
           ("ops.stereo", "StereoMatchResult"), ("solvers.fundamental", "FundamentalResult"),
-          ("solvers.initializer", "InitResult"), ("parallel.multistream", "StreamState")]
+          ("solvers.initializer", "InitResult"), ("parallel.multistream", "StreamState"),
+          ("models.train", "GTBatch"), ("models.train", "TrainState")]
 
 
 def resolve(package, module, dotted):
