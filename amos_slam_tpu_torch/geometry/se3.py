@@ -127,7 +127,9 @@ def make_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], dim=-1)
     bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
-    bottom[..., 0, 3] = 1.0
+    # fill_ on the device: item assignment of a Python number copies it
+    # from the host, a host sync on the card
+    bottom[..., 0, 3].fill_(1.0)
     return torch.cat([top, bottom], dim=-2)
 
 

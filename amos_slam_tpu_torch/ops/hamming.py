@@ -62,7 +62,10 @@ def match(
     ok = best <= max_dist
     if nn_ratio < 1.0:
         rest = dist.clone()
-        rest[rows, bidx] = torch.iinfo(dist.dtype).max
+        # a device scalar: a Python number would be copied from the host,
+        # a host sync on the card
+        rest[rows, bidx] = torch.full((), torch.iinfo(dist.dtype).max, dtype=dist.dtype,
+                                      device=dist.device)
         second = torch.amin(rest, dim=1)
         ok &= best.to(torch.float32) < nn_ratio * second.to(torch.float32)
     if mutual:

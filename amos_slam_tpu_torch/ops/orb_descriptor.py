@@ -16,6 +16,7 @@ so the bits are identical.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -184,13 +185,18 @@ def gather_patches(pyr: torch.Tensor, level: torch.Tensor, yx: torch.Tensor) -> 
     return pyr.reshape(-1)[idx]
 
 
+@functools.lru_cache(maxsize=None)
+def _orientation_weights_on(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The m10/m01 weights on ``device``, uploaded once: an upload per call
+    is a blocking copy, a host sync on the card."""
+    return tuple(torch.from_numpy(v).to(device) for v in _orientation_weights())
+
+
 def orientations_from_patches(patches: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid angle per patch (same moment sums as IC_Angle)."""
-    w10, w01 = _orientation_weights()
+    w10, w01 = _orientation_weights_on(patches.device)
     flat = patches.reshape(patches.shape[0], -1)
-    m10 = flat @ torch.from_numpy(w10).to(patches.device)
-    m01 = flat @ torch.from_numpy(w01).to(patches.device)
-    return torch.atan2(m01, m10)
+    return torch.atan2(flat @ w01, flat @ w10)
 
 
 def descriptors_from_patches(

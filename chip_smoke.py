@@ -24,18 +24,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
   5. system  -- System(SystemConfig(use_dynamics=False)) at the defaults
                 (640x480, 1000 features, max_keyframes 512, max_points
                 32768, 4096-point local map, local BA over 8 + 4 keyframes
-                and 1024 landmarks) over the first 96 frames of the bench's
+                and 1024 landmarks) over the first 64 frames of the bench's
                 motion (orbit_trajectory(144, radius=0.1, advance=144/768):
                 each frame moves as much as in bench.py's 768-frame run):
-                frames 0-31 through track_rgbd, frames 32-95 through
-                track_rgbd_chunk in 8 chunks of 8. Gates: ATE of
+                frames 0-31 through track_rgbd, frames 32-63 through
+                track_rgbd_chunk in 4 chunks of 8. Gates: ATE of
                 corrected_poses_np < 1.5 cm, RPE-t < 1 cm, local-map inliers
                 > 50 after frame 0, state OK, >= 3 keyframes, > 300 live
                 landmarks, >= 2 local BA solves with finite poses, device
                 kf_obs equal to the host mirror, scratch slots dead, one FAST
                 launch per frame. Local BA is timed with CUDA events, the
                 other keyframe steps between two syncs. Then
-                torch.profiler over 2 more chunks.
+                torch.profiler over 1 more chunk.
   6. dynamics -- the geometric dynamic stage on the card. (1) Mask level,
                 compute_dynamics at 640x480 with its defaults: the mover pair
                 of tests/test_dynamics.py (recall > 0.6, false positives
@@ -49,10 +49,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 the dominant mover with oracle stage-one masks (< 0.1 and
                 < 0.35x baseline). (3) Full width: System(SystemConfig(
                 use_dynamics=True, dynamics=DynamicsConfig(dyn_stride=2)))
-                at the defaults over 96 frames of room_with_mover(seed=1,
-                speed=1.5) on orbit_trajectory(104, radius=0.1,
-                advance=104/768), the renderer's mover mask as the stage-one
-                mask: frames 0-31 through track_rgbd, 32-95 through
+                at the defaults over 64 frames of room_with_mover(seed=1,
+                speed=1.5) on orbit_trajectory(72, radius=0.1,
+                advance=72/768), the renderer's mover mask as the stage-one
+                mask: frames 0-31 through track_rgbd, 32-63 through
                 track_rgbd_chunk in chunks of 8. Gates: ATE of
                 corrected_poses_np < 3 cm, RPE-t < 1 cm, inliers > 50 after
                 frame 0, state OK, >= 3 keyframes, one FAST launch per frame.
@@ -159,15 +159,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 over 8 distinct rooms, default_room(seed=20 + s), on one
                 camera path (the system phase's bench motion): initialize,
                 then 32 steps, each one torch.func.vmap of the fused frame
-                step over the 8 streams with the keyframes of every stream
-                resolved before the next step. Gates: exactly one FAST
+                step over the 8 streams, each step's (S, 3) rows resolved
+                and its keyframes inserted at most 2 steps later (flush()
+                after the last). Gates: exactly one FAST
                 launch per step and one in initialize, each over (64, 480,
                 640); at steps 1, 31 and 32 the vmapped step equals 8
                 separate fused_frame_step calls on the same inputs (sup rows
-                equal, poses within 1e-5); every stream >= 2 keyframes and
+                equal to the step's own resolved rows, poses within 1e-5); every stream >= 2 keyframes and
                 ATE < 1 cm; local-map inliers > 50 after frame 1. Prints the
                 aggregate FPS (8 x steps / wall), per-step ms, launches and
-                device ms (4 more steps under torch.profiler) with the busy
+                device ms (2 more steps under torch.profiler) with the busy
                 share, the same step at S = 1, keyframes per stream and the
                 peak memory.
  12. train  -- YOLACT training (models/{configs,data,train,eval}.py), which
@@ -180,7 +181,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 card against the port's CPU path on the same weights and
                 batch (loss parts within 1e-4 relative, every tensor's
                 update -lr x momentum within 1e-3 of its max |update|),
-                then 3 warm-up and 20 timed steps. Gates: loss and its three
+                then 3 warm-up and 10 timed steps. Gates: loss and its three
                 parts finite at every step, no out-of-memory. Prints step ms
                 (median of CUDA-event times and of wall times), images/s,
                 launches and device ms of one profiled step, the busy share,
@@ -193,6 +194,40 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 the last 5 steps < 0.6 x the mean of the first 3; then, as a
                 reading, detect + assemble_masks + evaluate_detections box
                 and mask mAP on 16 held-out shapes.
+ 13. pipeline -- pipelined host supervision (SystemConfig's default,
+                deterministic=False) against deterministic=True, in
+                alternating blocks (True, False, False, True) of the same
+                sequences, each block a fresh tracker timed from its first
+                call to the end of shutdown() / flush(): (1) the flagship as
+                phase 7 runs it (Segmenter(img_size=400).person_mask_batch ->
+                track_rgbd_chunk, W 8, dispatch_window 2) over the first 40
+                frames of phase 6's sequence; deterministic, the chunk call
+                tracks frame by frame; (2) track_rgbd over phase 5's first
+                40 frames (16 frames of run-ahead); (3) MultiStreamSLAM(
+                SystemConfig(use_dynamics=False), 8) over 12 steps of phase
+                11's rooms (2 steps of run-ahead; deterministic: flush()
+                after every step). The second block of each mode drives one
+                more chunk (8 frames; 2 steps) under torch.profiler (CUDA
+                activity only) with torch's sync debug mode on. Prints per mode: host ms per frame (step), the blocking
+                waits of the reader and fetcher (before the final flush and
+                in all), the histogram of supervision lag (frames or steps
+                dispatched after a frame's own call when its read
+                resolves), launches and device ms per frame, the busy share
+                and the host syncs the debug mode reports, by file:line.
+                Gates: lag <= 2W = 16 frames on the chunk path, <= 16
+                frames per frame, <= 2 steps; in every flagship and
+                per-frame block phase 7's gates (ATE < 3 cm, RPE-t < 1 cm,
+                inliers > 50, >= 3 keyframes, state OK, one FAST launch per
+                frame); multistream ATE < 1 cm per stream and one FAST
+                launch per step.
+Phases 5-11 build SystemConfig() and so run pipelined too; they sync after
+each timed call, so a read resolves at the next call's drain at the latest.
+To keep the script's time with phase 13, earlier depth was cut: phase 5
+from 96 to 64 gated frames and from 16 to 8 profiled ones, phase 6's
+full-width run from 96 to 64 frames (its sequence, which phases 7 and 13
+share, from 104 to 72), phases 9 and 10 from 4 to 2 profiled fused
+frames, phase 11 from 4 to 2 profiled steps at S = 8 and at S = 1, phase
+12 from 20 to 10 timed steps.
 The kernels phase also holds the FAST kernel against its plain version at
 the stereo path's (8, 376, 1241) with KITTI's level extents and at the
 multistream path's (64, 480, 640) (8 streams' pyramids through the op's
@@ -205,12 +240,14 @@ the batched route), the card's name and power limit (nvidia-smi), and
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
 import statistics
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -225,11 +262,11 @@ from amos_slam_tpu_torch.ops.kernels import timing
 from amos_slam_tpu_torch.tools import loop_search
 
 N_FRAMES = 30
-SYS_FRAMES = 96         # gated main run of the system phase
+SYS_FRAMES = 64         # gated main run of the system phase
 SYS_PER_FRAME = 32      # of which the first go through track_rgbd
 SYS_W = 8               # chunk width of track_rgbd_chunk, as bench.py
-SYS_PROFILED = 16       # two more chunks under torch.profiler
-DYN_FRAMES = 96         # gated full-width run of the dynamics phase
+SYS_PROFILED = 8        # one more chunk under torch.profiler
+DYN_FRAMES = 64         # gated full-width run of the dynamics phase
 DYN_PER_FRAME = 32      # of which the first go through track_rgbd
 DYN_W = 8               # chunk width; one more chunk is profiled
 SEG_W = 8               # flagship chunk width, as bench.py
@@ -237,19 +274,19 @@ SEG_CHUNKS = 8          # gated flagship chunks; one more is profiled
 LOOP = loop_search.PHASE8   # phase 8's sequence, blackout and kidnap
 STEREO_FRAMES = 64     # gated stereo run (phase 9)
 MONO_FRAMES = 60       # gated mono run (phase 10)
-PATH_PROFILED = 4      # fused-path frames profiled after each of them
+PATH_PROFILED = 2      # fused-path frames profiled after each of them
 MS_STREAMS = 8         # multistream (phase 11): bench.py phase_multistream's S
 MS_STEPS = 32          # gated steps after initialize (the 30-frame rule makes a
                        # keyframe per stream by step 30 at the latest)
 MS_CHECK = (1, 31, MS_STEPS)   # steps held against S separate fused steps
 MS_ATE = 0.01          # the worst stream measured 3.2 mm on an H100
-MS_PROFILED = 4        # steps profiled after the gated run
+MS_PROFILED = 2        # steps profiled after the gated run
 MS_SOLO_STEPS = 8      # the same step at S = 1, then MS_PROFILED profiled
 CARD_VS_CPU_F32 = 1e-4  # card f32 net vs CPU f32 net, max error over max |CPU|
 BF16_VS_F32 = (8e-2, 2e-2)   # max and rms error over |f32|: tests/test_torch_segmenter.py
 BF16_PEAK_FLOP_S = 989e12    # H100 SXM dense bf16 tensor-core peak (data sheet)
 TRAIN_CFG = "yolact_resnet50"   # phase 12: the flagship Segmenter's backbone and classes
-TRAIN_WARMUP, TRAIN_STEPS = 3, 20
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 TRAIN_PARITY_B = 2             # batch of the one-step card-vs-CPU check
 # card vs CPU, one step: loss parts (relative), each tensor's update over its max |update|
 TRAIN_F32 = (1e-5, 3e-2)       # measured 3.1e-7 and 7.5e-3 on an H100 (see train_card_vs_cpu)
@@ -257,6 +294,9 @@ TRAIN_F64 = (1e-12, 1e-10)     # measured <= 2.9e-16 and 1.1e-14 on an H100
 F32_PEAK_FLOP_S = 67e12        # H100 SXM f32 outside the tensor cores (data sheet)
 PROOF_STEPS, PROOF_RATIO = 60, 0.6   # tests/test_yolact_data.py's training proof
 PROOF_HELD_OUT = 16
+PIPE_MODES = (True, False, False, True)   # phase 13's blocks: deterministic or not
+PIPE_FRAMES = 40       # frames per flagship / per-frame block (>= 3 keyframes)
+PIPE_MS_STEPS = 12     # multistream steps per block
 
 
 def check(cond: bool, msg: str) -> None:
@@ -471,9 +511,10 @@ def bow_alone(slam) -> dict:
     return {"bow_alone_event_ms": _event_ms(fn), **_profiled_call(fn)}
 
 
-def system_phase(fmn) -> int:
+def system_phase(fmn):
     """Phase 5 (see the module docstring). Returns the FAST launches of the
-    gated run."""
+    gated run, and its staged frames (grey, depth on the card; poses) for
+    phase 13."""
     from torch.profiler import ProfilerActivity, profile
 
     from amos_slam_tpu_torch.system import System, TrackingState
@@ -619,7 +660,7 @@ def system_phase(fmn) -> int:
         / (statistics.median(chunk_ms) / SYS_W),
         **prof_out,
     }))
-    return launches
+    return launches, (g_dev, d_dev, poses_gt)
 
 
 def _to_dev(*arrays):
@@ -1176,6 +1217,9 @@ def _path_readings(slam, track, frames, stamps, force_split) -> dict:
     def window(name, n, before=lambda: None):
         nonlocal i
         for profiled in (False, True):
+            # a read still in flight would resolve at the next frame's drain
+            # and undo ``before`` (a LOST state turned OK again)
+            slam.shutdown()
             before()
             torch.cuda.synchronize()
             ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -1438,7 +1482,15 @@ def multistream_phase(fmn, seq) -> int:
         shapes.append(tuple(imgs.shape))
         return type(fmn).launch(fmn, imgs, extents)
 
-    snaps, sups, est, step_ms = {}, [], [], []
+    # each step's (S, 3) rows as they resolve (up to 2 steps after it)
+    sups, est, step_ms, snaps = {}, [], [], {}
+    resolve = slam._resolve_step
+
+    def recording_rows(st, heavy, frame, sup):
+        sups[frame] = np.array(sup)
+        return resolve(st, heavy, frame, sup)
+
+    slam._resolve_step = recording_rows
     fmn.launch = recording
     try:
         torch.cuda.synchronize()
@@ -1454,11 +1506,11 @@ def multistream_phase(fmn, seq) -> int:
             if k in MS_CHECK:
                 snaps[k] = (slam.state, slam.views)
             t = time.perf_counter()
-            T, sup = slam.step(g_dev[k], d_dev[k])
+            T, _ = slam.step(g_dev[k], d_dev[k])
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t) * 1e3)
-            sups.append(np.asarray(sup).copy())
             est.append(T)
+        slam.flush()
         run_s = time.perf_counter() - t_run
         launches = fmn.launches
     finally:
@@ -1476,7 +1528,7 @@ def multistream_phase(fmn, seq) -> int:
                for s in range(S)]
         sep_sup = np.stack([r.sup.cpu().numpy() for r in sep])
         sep_T = torch.stack([r.Tcw for r in sep])
-        vs_separate[k] = {"sup_equal": bool((sep_sup == sups[k - 1]).all()),
+        vs_separate[k] = {"sup_equal": bool((sep_sup == sups[k]).all()),
                     "pose_max_abs_err": float((sep_T - est[k]).abs().max()),
                     "view_points": [int((views.ids[s] >= 0).sum()) for s in range(S)]}
 
@@ -1507,7 +1559,7 @@ def multistream_phase(fmn, seq) -> int:
     gt_pos = evaluate.positions_from_cw(np.asarray(poses[: 1 + MS_STEPS]))
     ates = [evaluate.ate_rmse(evaluate.positions_from_cw(est_np[:, s]), gt_pos)
             for s in range(S)]
-    inliers = np.stack(sups)[:, :, 1]                               # (steps, S)
+    inliers = np.stack([sups[k] for k in range(1, 1 + MS_STEPS)])[:, :, 1]   # (steps, S)
     kfs = [m.n_kfs for m in slam.maps]
     kf_frames = [[int(f) for f in m.kf_frame_id[: m.n_kfs]] for m in slam.maps]
     med8 = statistics.median(step_ms)
@@ -1852,6 +1904,233 @@ def train_phase() -> None:
     train_proof()
 
 
+class LagMeter:
+    """Supervision lag of one System (in frames) or MultiStreamSLAM (in
+    steps): when a read resolves, how many frames (steps) were dispatched
+    after the call that dispatched it. Wraps the instance's reader submit
+    and its resolve method; ``waits()`` reads the blocking waits of its
+    reader and fetcher."""
+
+    def __init__(self, obj, multistream: bool = False):
+        self.obj, self.hist, self.last = obj, collections.Counter(), -1
+        submit = obj._reader.submit
+
+        def rec_submit(item):
+            sup, payload = item
+            rows = 1 if multistream or sup.dim() == 1 else sup.shape[0]
+            self.last = payload[-1] + rows - 1
+            return submit(item)
+
+        obj._reader.submit = rec_submit
+        if multistream:
+            resolve = obj._resolve_step
+
+            def rec_step(st, heavy, frame, sup):
+                self.hist[self.last - frame] += 1
+                return resolve(st, heavy, frame, sup)
+
+            obj._resolve_step = rec_step
+        else:
+            resolve_done = obj._resolve_done
+
+            def rec_done(res, frame_id, sup):
+                rows = 1 if sup.ndim == 1 else sup.shape[0]
+                self.hist[self.last - (frame_id + rows - 1)] += rows
+                return resolve_done(res, frame_id, sup)
+
+            obj._resolve_done = rec_done
+
+    def waits(self) -> int:
+        return self.obj._reader.waits + self.obj._fetcher.waits
+
+
+@contextlib.contextmanager
+def host_syncs(out: collections.Counter):
+    """Count the host syncs that torch's sync debug mode warns about
+    (blocking copies, .item(), nonzero, stream syncs; not CUDA-event
+    waits), by the file:line that made them."""
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    for w in caught:
+        if "synchronizing" in str(w.message):
+            out[f"{os.path.relpath(w.filename)}:{w.lineno}"] += 1
+
+
+def _pipeline_blocks(name, fmn, make, run, gate, n, unit, lag_max, profiled):
+    """Phase 13's alternating blocks of one path. For each mode of
+    PIPE_MODES (deterministic True / False), ``make(det)`` builds a fresh
+    tracker and ``run(slam, a, b)`` drives it over frames (steps) a..b-1;
+    each block is timed from its first call to the end of ``shutdown()`` /
+    ``flush()`` (every read resolved, the device idle), then gated by
+    ``gate(slam, block_launches)``. The second block of each mode then
+    drives ``profiled`` more frames under torch.profiler with the sync debug
+    mode on. Prints one JSON line; returns the FAST launches of the
+    blocks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    per = "_per_" + unit
+    modes = {det: {"host_ms" + per: [], "waits_before_flush": [], "waits": [], "gates": []}
+             for det in (True, False)}
+    lags = {det: collections.Counter() for det in (True, False)}
+    total = 0
+    for det in PIPE_MODES:
+        slam = make(det)
+        meter = LagMeter(slam, multistream=unit == "step")
+        done = slam.flush if unit == "step" else slam.shutdown
+        torch.cuda.synchronize()
+        fmn.launches = 0
+        t = time.perf_counter()
+        run(slam, 0, n)
+        waits_run = meter.waits()
+        done()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3 / n
+        launches = fmn.launches
+        total += launches
+        m = modes[det]
+        m["host_ms" + per].append(ms)
+        m["waits_before_flush"].append(waits_run)
+        m["waits"].append(meter.waits())
+        lags[det].update(meter.hist)
+        m["gates"].append(gate(slam, launches))
+        if len(m["gates"]) == 2:   # the mode's second block: profile more frames
+            syncs = collections.Counter()
+            fmn.launches = 0
+            with profile(activities=[ProfilerActivity.CUDA]) as prof, host_syncs(syncs):
+                run(slam, n, n + profiled)
+                done()
+                torch.cuda.synchronize()
+            total += fmn.launches
+            p = device_profile(prof, profiled)
+            m["launches" + per] = p["kernel_launches_per_frame"]
+            m["device_ms" + per] = p["device_kernel_ms_per_frame"]
+            m["busy_share"] = m["device_ms" + per] / statistics.mean(m["host_ms" + per])
+            m["host_syncs" + per] = sum(syncs.values()) / profiled
+            m["host_syncs_top"] = syncs.most_common(6)
+        del slam, meter
+    out = {}
+    for det, m in modes.items():
+        lag = lags[det]
+        m["lag_hist_" + unit + "s"] = {int(k): lag[k] for k in sorted(lag)}
+        m["lag_max"] = max(lag) if lag else None
+        out["deterministic" if det else "pipelined"] = m
+        check(not lag or max(lag) <= lag_max,
+              f"{name}: supervision lag {max(lag)} > {lag_max} {unit}s")
+    print(json.dumps({"pipeline_phase": name,
+                      "blocks": ["deterministic" if d else "pipelined" for d in PIPE_MODES],
+                      unit + "s_per_block": n, "profiled_" + unit + "s": profiled,
+                      **out, "card": timing.smi("name,power.limit")}))
+    return total
+
+
+def _gate_system(name, poses):
+    """Phase 7's gates on a block of a System path."""
+    from amos_slam_tpu_torch.system import TrackingState
+
+    def gate(slam, launches):
+        est = np.asarray(slam.corrected_poses_np())
+        n = est.shape[0]
+        gt = np.asarray(poses[:n])
+        check(bool(np.isfinite(est).all()), f"{name}: trajectory not finite")
+        ate = evaluate.ate_rmse(evaluate.positions_from_cw(est), evaluate.positions_from_cw(gt))
+        rpe_t, _ = evaluate.rpe(est, gt)
+        inl = min(s["inliers"] for s in slam.stats[1:])
+        kfs = [int(f) for f in slam.map.kf_frame_id[: slam.map.n_kfs]]
+        check(ate < 0.03, f"{name}: ATE {ate:.4f} m")
+        check(rpe_t < 0.01, f"{name}: RPE-t {rpe_t:.4f} m")
+        check(inl > 50, f"{name}: min inliers {inl}")
+        check(len(kfs) >= 3, f"{name}: {len(kfs)} keyframes")
+        check(slam.state is TrackingState.OK, f"{name}: state {slam.state.name}")
+        check(launches == n, f"{name}: {fmn_mod.NAME} launched {launches} times in {n} frames")
+        return {"ate_m": ate, "rpe_t_m": rpe_t, "min_inliers": inl, "keyframe_frames": kfs}
+
+    return gate
+
+
+def pipeline_phase(fmn, seg, flag_seq, sys_seq, ms_seq) -> int:
+    """Phase 13 (see the module docstring). Returns the FAST launches of its
+    System blocks and of its multistream blocks."""
+    from amos_slam_tpu_torch.config import DynamicsConfig
+    from amos_slam_tpu_torch.parallel.multistream import MultiStreamSLAM
+    from amos_slam_tpu_torch.system import System
+
+    W = SEG_W
+    stamps = [i / 30.0 for i in range(PIPE_FRAMES + W)]
+
+    # the flagship: segmenter -> track_rgbd_chunk, dispatch_window 2
+    g_f, d_f, _, poses_f = flag_seq
+    rgb = g_f[..., None].expand(-1, -1, -1, 3)     # grey replicated, as bench.py
+
+    def run_flagship(slam, a, b):
+        masks = seg.person_mask_batch(rgb[a: a + W])
+        for c in range(a, b, W):
+            nxt = seg.person_mask_batch(rgb[c + W: c + 2 * W]) if c + W < b else None
+            slam.track_rgbd_chunk(g_f[c: c + W], d_f[c: c + W], stamps[c: c + W],
+                                  seg_masks=masks)
+            masks = nxt
+
+    flag = _pipeline_blocks(
+        "flagship: Segmenter(img_size=400) -> System(SystemConfig(dynamics=DynamicsConfig("
+        "dyn_stride=2))).track_rgbd_chunk, W 8, dispatch_window 2", fmn,
+        lambda det: System(SystemConfig(dynamics=DynamicsConfig(dyn_stride=2),
+                                        deterministic=det)),
+        run_flagship, _gate_system("pipeline flagship", poses_f), PIPE_FRAMES, "frame",
+        2 * W, W)
+
+    # the per-frame path on the system cell, 16 frames of run-ahead
+    g_s, d_s, poses_s = sys_seq
+
+    def run_frames(slam, a, b):
+        for i in range(a, b):
+            slam.track_rgbd(g_s[i], d_s[i], stamps[i])
+
+    frame = _pipeline_blocks(
+        "per frame: System(SystemConfig(use_dynamics=False)).track_rgbd", fmn,
+        lambda det: System(SystemConfig(use_dynamics=False, deterministic=det)),
+        run_frames, _gate_system("pipeline per frame", poses_s), PIPE_FRAMES, "frame",
+        16, W)
+
+    # multistream, 2 steps of run-ahead; deterministic: flush() after each step
+    poses_m, gray, depth = ms_seq
+    g_m, d_m = _to_dev(gray[: 1 + PIPE_MS_STEPS + MS_PROFILED],
+                       depth[: 1 + PIPE_MS_STEPS + MS_PROFILED])
+    cfg = SystemConfig(use_dynamics=False)
+
+    def make_ms(det):
+        slam = MultiStreamSLAM(cfg, MS_STREAMS)
+        slam.deterministic = det
+        slam.est = []
+        slam.initialize(g_m[0], d_m[0])
+        return slam
+
+    def run_ms(slam, a, b):
+        for k in range(a + 1, b + 1):
+            T, _ = slam.step(g_m[k], d_m[k])
+            if slam.deterministic:
+                slam.flush()
+            slam.est.append(T)
+
+    def gate_ms(slam, launches):
+        est = torch.stack(slam.est).cpu().numpy().astype(np.float64)    # (steps, S, 4, 4)
+        gt = evaluate.positions_from_cw(np.asarray(poses_m[1: 1 + est.shape[0]]))
+        ates = [evaluate.ate_rmse(evaluate.positions_from_cw(est[:, s]), gt)
+                for s in range(MS_STREAMS)]
+        check(max(ates) < MS_ATE, f"pipeline multistream ATE {ates}")
+        check(launches == est.shape[0],
+              f"pipeline multistream: {launches} FAST launches in {est.shape[0]} steps")
+        return {"ate_m": ates, "keyframes": [m.n_kfs for m in slam.maps]}
+
+    ms = _pipeline_blocks(
+        f"multistream: MultiStreamSLAM(SystemConfig(use_dynamics=False), {MS_STREAMS})", fmn,
+        make_ms, run_ms, gate_ms, PIPE_MS_STEPS, "step", 2, MS_PROFILED)
+    return flag + frame, ms
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2019,25 +2298,26 @@ def main() -> int:
         return out
 
     # 5. the system path
-    sys_launches = timed("5 system", system_phase, fmn)
+    sys_launches, sys_seq = timed("5 system", system_phase, fmn)
     # 6. the system path with the geometric dynamic stage
     seq = timed("6 render", mover_sequence, DYN_FRAMES + DYN_W)
     dyn_launches = timed("6 dynamics", dynamics_phase, fmn, seq)
     # 7. the flagship: the segmenter feeding the system with dynamics
     flag_launches, seg = timed("7 flagship", flagship_phase, fmn, seq)
-    del seq
     # 8. loop closing and relocalization on the flagship
     loop_launches = timed("8 loop", loop_phase, fmn, seg)
-    del seg
     # 9. stereo at KITTI's canvas; 10. monocular at 640x480
     stereo_launches = timed("9 stereo", stereo_phase, fmn)
     mono_launches = timed("10 mono", mono_phase, fmn)
     # 11. multistream: 8 streams in one vmapped step
     ms_seq = timed("11 render", ms_frames)
     ms_launches = timed("11 multistream", multistream_phase, fmn, ms_seq)
-    del ms_seq
     # 12. YOLACT training at yolact_resnet50's width, and the tiny proof
     timed("12 train", train_phase)
+    # 13. pipelined host supervision against deterministic, in alternating blocks
+    pipe_launches, pipe_ms_launches = timed("13 pipeline", pipeline_phase, fmn, seg, seq,
+                                            sys_seq, ms_seq)
+    del seq, seg, sys_seq, ms_seq
     print(json.dumps({"phase_wall_s": phase_s, "total_s": time.perf_counter() - t0}))
     print(json.dumps({"fast_kernel_launches": {"odometry": launches, "system": sys_launches,
                                                "dynamics": dyn_launches,
@@ -2045,14 +2325,16 @@ def main() -> int:
                                                "loop": loop_launches,
                                                "stereo": stereo_launches,
                                                "mono": mono_launches,
-                                               "multistream": ms_launches}}))
+                                               "multistream": ms_launches,
+                                               "pipeline": pipe_launches,
+                                               "pipeline_multistream": pipe_ms_launches}}))
 
     print(json.dumps({"kernels": [{
         "name": fmn_mod.NAME, "route": "cuda",
         "source": "amos_slam_tpu_torch/csrc/fast_margin_nms.cu",
         "replaces": "amos_slam_tpu/ops/pallas/fast_pallas.py:110",
         "launches": (launches + sys_launches + dyn_launches + flag_launches + loop_launches
-                     + stereo_launches + mono_launches),
+                     + stereo_launches + mono_launches + pipe_launches),
         "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2061,7 +2343,7 @@ def main() -> int:
         "name": fmn_mod.NAME + "_batched", "route": "cuda",
         "source": "amos_slam_tpu_torch/csrc/fast_margin_nms.cu",
         "replaces": "amos_slam_tpu/ops/pallas/fast_pallas.py:128",
-        "launches": ms_launches,
+        "launches": ms_launches + pipe_ms_launches,
         "max_abs_err": b_err, **b_row,
         "library_ms": None,
     }]}))

@@ -12,10 +12,11 @@ Held:
 * ``multistream_step`` equals S separate ``fused_frame_step`` calls on
   the same inputs, a stream that goes dark (the LOST fallback) included:
   ``sup`` rows equal, poses within 1e-5;
-* the JAX ``MultiStreamSLAM(cfg, 3)`` on its default one-device mesh, with
-  ``flush()`` after every ``step()`` (it resolves keyframes 1-2 steps late
-  on a reader thread otherwise; the port resolves each step before
-  returning), against the port over 12 steps of 3 distinct rooms: ``sup``
+* the JAX ``MultiStreamSLAM(cfg, 3)`` on its default one-device mesh
+  against the port over 12 steps of 3 distinct rooms, each with
+  ``flush()`` after every ``step()`` (both resolve keyframes up to 2 steps
+  late otherwise; tests/test_torch_pipeline.py holds them under a fixed
+  lag): ``sup``
   rows equal every step, poses within 1e-4 (the local-BA gap of
   tests/test_torch_local_ba.py), the same keyframe frames, keyframe and
   landmark counts per stream, landmarks within 1e-3;
@@ -150,7 +151,9 @@ def test_multistream_step_equals_separate_steps():
             if k == 5:   # stream 1 goes dark: the step's LOST fallback
                 g, d = g.copy(), d.copy()
                 g[1], d[1] = 0.0, 0.0
-            T, sup = slam.step(g, d)
+            T, _ = slam.step(g, d)
+            slam.flush()                 # this step's rows: resolve what is in flight
+            sup = slam.last_sup
             sep = [fused_frame_step(
                 slam.pipeline, torch.from_numpy(g[s]), torch.from_numpy(d[s]),
                 index_tree(st0.feats, s), st0.Tcw[s], st0.velocity[s], index_tree(views, s),
@@ -180,8 +183,10 @@ def test_jax_parity_three_streams():
         jslam.step(*frames[k])
         jslam.flush()
         with no_vmap_fallback():
-            T, sup = tslam.step(*frames[k])
-        np.testing.assert_array_equal(sup, np.asarray(jslam.last_sup), err_msg=f"step {k}")
+            T, _ = tslam.step(*frames[k])
+            tslam.flush()
+        np.testing.assert_array_equal(tslam.last_sup, np.asarray(jslam.last_sup),
+                                      err_msg=f"step {k}")
         np.testing.assert_allclose(T.numpy(), np.asarray(jslam.state.Tcw), atol=1e-4,
                                    err_msg=f"step {k}")
     for s, (jm, tm) in enumerate(zip(jslam.maps, tslam.maps)):
