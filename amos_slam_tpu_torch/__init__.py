@@ -7,8 +7,8 @@ JAX package's Pallas kernels are hand-written CUDA kernels under ``csrc/``,
 built with nvcc at first use (``ops/kernels/``). Entry points run on the CUDA
 card unless the caller passes ``device="cpu"``.
 
-Subpackages (ported so far)
----------------------------
+Subpackages
+-----------
 geometry   SE3 and Sim3 Lie groups, pinhole camera.
 solvers    Robust weights, pose optimization, local BA, PnP, F-RANSAC, the
            two-view H/F initializer, Sim3 RANSAC and refinement, pose graph,
@@ -23,6 +23,9 @@ models     YOLACT stage one: ResNet-FPN, ProtoNet, fast-NMS, Segmenter;
            its training (configs, data, multibox loss, SGD step) and mAP.
 io         Synthetic scenes, TUM / KITTI / EuRoC loaders, trajectory IO,
            ATE/RPE evaluation.
+parallel   Multistream SLAM over a stream mesh; the data-parallel YOLACT
+           train step over a process group.
+utils      Trace annotations, a trace context manager, a host span timer.
 examples   The reference's six example mains against the port.
 tools      Timing tools for the card.
 system     The System facade (RGB-D per frame and chunked, stereo, mono).

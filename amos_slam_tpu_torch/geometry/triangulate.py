@@ -64,3 +64,8 @@ def triangulate_dlt(P1: torch.Tensor, P2: torch.Tensor, x1: torch.Tensor,
     r = torch.einsum("...ki,...i->...k", Am, Xw) - b
     w0 = torch.sum(r * r, dim=-1)
     return Xw, w0
+
+
+def projection_matrix(K: torch.Tensor, Tcw: torch.Tensor) -> torch.Tensor:
+    """K (..., 3, 3) and Tcw (..., 4, 4) -> P (..., 3, 4)."""
+    return K @ Tcw[..., :3, :4]

@@ -10,8 +10,9 @@ As in the JAX package, whose ``FrozenBN`` holds ``scale``, ``bias``,
 ``mean`` and ``var`` as Flax params, every tensor of the dict is
 differentiated and stepped, batch norm's ``weight``, ``bias``,
 ``running_mean`` and ``running_var`` included. Training runs in f32 (TF32
-is off package-wide); the JAX package's data-parallel step over a device
-mesh has no counterpart: the port targets one card.
+is off package-wide). The data-parallel step over a process group is
+``parallel/data_parallel.py``; it shares :func:`value_and_grads` and
+:func:`sgd_update` with :func:`make_train_step`.
 """
 
 from __future__ import annotations
@@ -182,32 +183,48 @@ class TrainState(NamedTuple):
     step: torch.Tensor  # () int32
 
 
+def value_and_grads(model: Yolact, priors: torch.Tensor, params: Dict[str, torch.Tensor],
+                    batch: GTBatch):
+    """(loss, aux, grads) of :func:`multibox_loss` at ``params``: ``grads``
+    a list in the dict's key order, every tensor differentiated."""
+    keys = list(params)
+    leaves = [params[k].detach().requires_grad_() for k in keys]
+    loss, aux = multibox_loss(model, dict(zip(keys, leaves)), priors, batch)
+    grads = list(torch.autograd.grad(loss, leaves))
+    return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
+
+
+@torch.no_grad()
+def sgd_update(state: TrainState, grads, lr: float, momentum: float,
+               weight_decay: float) -> TrainState:
+    """One SGD step with momentum and decayed weights (``grads`` in the
+    key order of ``state.params``): optax's ``chain(add_decayed_weights(
+    weight_decay), sgd(lr, momentum))`` written out, ``g' = g + wd * p``,
+    ``m = g' + momentum * m`` (``m`` starting at zero), ``p = p - lr * m``."""
+    keys = list(state.params)
+    p = [state.params[k] for k in keys]
+    g = torch._foreach_add(list(grads), p, alpha=weight_decay)
+    m = torch._foreach_add(g, [state.opt_state[k] for k in keys], alpha=momentum)
+    new_p = torch._foreach_add(p, m, alpha=-lr)
+    return TrainState(dict(zip(keys, new_p)), dict(zip(keys, m)), state.step + 1)
+
+
+def init_train_state(params) -> TrainState:
+    """Step 0: ``params`` (state_dict-keyed) and a zero momentum trace."""
+    params = dict(params)
+    dev = next(iter(params.values())).device
+    return TrainState(params, {k: torch.zeros_like(v) for k, v in params.items()},
+                      torch.zeros((), dtype=torch.int32, device=dev))
+
+
 def make_train_step(model: Yolact, priors: torch.Tensor, lr: float = 1e-3,
                     momentum: float = 0.9, weight_decay: float = 5e-4):
     """(init, step) of SGD with momentum and weight decay over every tensor
-    of ``params``: optax's ``chain(add_decayed_weights(weight_decay),
-    sgd(lr, momentum))`` written out, ``g' = g + wd * p``,
-    ``m = g' + momentum * m`` (``m`` starting at zero), ``p = p - lr * m``.
-    ``step(state, batch)`` returns (new state, loss, aux) and leaves
-    ``state`` as it was."""
-
-    def init(params) -> TrainState:
-        params = dict(params)
-        dev = next(iter(params.values())).device
-        return TrainState(params, {k: torch.zeros_like(v) for k, v in params.items()},
-                          torch.zeros((), dtype=torch.int32, device=dev))
+    of ``params`` (:func:`sgd_update`). ``step(state, batch)`` returns (new
+    state, loss, aux) and leaves ``state`` as it was."""
 
     def step(state: TrainState, batch: GTBatch):
-        keys = list(state.params)
-        leaves = [state.params[k].detach().requires_grad_() for k in keys]
-        loss, aux = multibox_loss(model, dict(zip(keys, leaves)), priors, batch)
-        grads = torch.autograd.grad(loss, leaves)
-        with torch.no_grad():
-            p = [state.params[k] for k in keys]
-            g = torch._foreach_add(list(grads), p, alpha=weight_decay)
-            m = torch._foreach_add(g, [state.opt_state[k] for k in keys], alpha=momentum)
-            new_p = torch._foreach_add(p, m, alpha=-lr)
-        new = TrainState(dict(zip(keys, new_p)), dict(zip(keys, m)), state.step + 1)
-        return new, loss.detach(), {k: v.detach() for k, v in aux.items()}
+        loss, aux, grads = value_and_grads(model, priors, state.params, batch)
+        return sgd_update(state, grads, lr, momentum, weight_decay), loss, aux
 
-    return init, step
+    return init_train_state, step

@@ -22,6 +22,24 @@ def huber_weight(chi2: torch.Tensor, delta2) -> torch.Tensor:
     return torch.where(chi2 <= delta2, torch.ones_like(chi2), delta / e)
 
 
+def cauchy_weight(chi2: torch.Tensor, delta2) -> torch.Tensor:
+    """IRLS weight of the Cauchy kernel: 1 / (1 + chi2 / delta2)."""
+    return 1.0 / (1.0 + chi2 / delta2)
+
+
+def weighted_normal_eq(J: torch.Tensor, r: torch.Tensor, w: torch.Tensor):
+    """H = sum w J^T J and b = sum w J^T r over residual blocks.
+
+    J: (..., N, D, P) Jacobian blocks (D residual dims, P parameters);
+    r: (..., N, D) residuals; w: (..., N) per-block weights. Returns H
+    (..., P, P) and b (..., P), exact f32 on the card (TF32 is off
+    package-wide, the JAX package's ``Precision.HIGHEST``)."""
+    Jw = J * w[..., None, None]
+    H = torch.einsum("...ndp,...ndq->...pq", Jw, J)
+    b = torch.einsum("...ndp,...nd->...p", Jw, r)
+    return H, b
+
+
 def chol_factor_unrolled(Hd: torch.Tensor):
     """Unrolled Cholesky factor of a small SPD matrix, as a list of lists of
     (...,) tensors for :func:`chol_backsolve_unrolled`."""

@@ -220,6 +220,39 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 inliers > 50, >= 3 keyframes, state OK, one FAST launch per
                 frame); multistream ATE < 1 cm per stream and one FAST
                 launch per step.
+ 14. multi-device -- the paths over more than one device, on the card.
+                (1) MultiStreamSLAM(SystemConfig(use_dynamics=False), 8,
+                mesh) over phase 11's 32 steps, the mesh the first G cards
+                on a machine with more than one (G the largest divisor of
+                8 that is at most the card count), else two entries on
+                cuda:0: G groups of 8 / G streams, each with its own state,
+                views, maps and batched FAST launch over (8 / G x 8, 480,
+                640); runs in turns with one group (G = 1, G, G, 1), each a
+                fresh tracker. Gates: every run makes G FAST launches per
+                step and G in initialize, all at its group's shape, and
+                the profiler (CUDA activity only) counts G FAST kernels per
+                step in 2 more steps of the first mesh run; each group's
+                state on its mesh device; sup rows equal to the first
+                one-group run's every step, poses within 1e-5, the same
+                keyframes (>= 2 per stream: each stream inserts at least
+                one after initialize, under the mesh); ATE < 1 cm per
+                stream. Prints per-step ms of every run, launches and
+                device ms per step, peak memory. (2) make_data_parallel_step
+                over a 1-rank NCCL group (tcp://localhost) against
+                make_train_step: yolact_resnet50 at 550 px, batch 8, f32,
+                3 steps on one batch, Flax's init from seed 0, both steps
+                taken from the same state each step (the data-parallel
+                chain's); gates at every step: phase 12's one-step f32
+                tolerances (loss parts 1e-5 relative, the momentum 3e-2 of
+                its max); prints step ms by CUDA events and the card's own
+                gap, make_train_step run twice from that state.
+                (3) 2 ranks on cuda:0, spawned and joined with a 240 s
+                timeout, over gloo with CUDA tensors (NCCL refuses two
+                ranks on one card: "Duplicate GPU detected"):
+                yolact_tiny at 128 px, batch 8 (4 per rank), float64, 3
+                steps, against the single-process step on the full batch;
+                gates: loss parts, params (over their change) and momentum
+                within 1e-10, params equal across the ranks.
 Phases 5-11 build SystemConfig() and so run pipelined too; they sync after
 each timed call, so a read resolves at the next call's drain at the latest.
 To keep the script's time with phase 13, earlier depth was cut: phase 5
@@ -229,13 +262,16 @@ share, from 104 to 72), phases 9 and 10 from 4 to 2 profiled fused
 frames, phase 11 from 4 to 2 profiled steps at S = 8 and at S = 1, phase
 12 from 20 to 10 timed steps.
 The kernels phase also holds the FAST kernel against its plain version at
-the stereo path's (8, 376, 1241) with KITTI's level extents and at the
+the stereo path's (8, 376, 1241) with KITTI's level extents, at the
 multistream path's (64, 480, 640) (8 streams' pyramids through the op's
-vmap rule, the level extents repeated), times it at both, and measures the
-host time per call of a direct launch, of the custom op and of the
-vmapped call. The last three lines are the kernels JSON (the single and
-the batched route), the card's name and power limit (nvidia-smi), and
-{"ok": true, "device": {...}}.
+vmap rule, the level extents repeated) and at a mesh group's (8 / G x 8,
+480, 640), times it at each, and measures the host time per call of a
+direct launch, of the custom op and of the vmapped call. The last three
+lines are the kernels JSON (the single route; the batched route at 8
+streams, launched in phases 11 and 13 and in phase 14's one-group runs;
+the batched route at a mesh group's shape, launched in phase 14's mesh
+runs), the card's name and power limit (nvidia-smi), and {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -297,6 +333,10 @@ PROOF_HELD_OUT = 16
 PIPE_MODES = (True, False, False, True)   # phase 13's blocks: deterministic or not
 PIPE_FRAMES = 40       # frames per flagship / per-frame block (>= 3 keyframes)
 PIPE_MS_STEPS = 12     # multistream steps per block
+MESH_STEPS = MS_STEPS  # phase 14: multistream steps per run over the stream mesh
+DP_STEPS = 3           # phase 14: data-parallel steps
+DP_JOIN_S = 240        # the spawned ranks' join timeout
+DP_F64_TOL = 1e-10     # 2 ranks vs the single-process step, float64
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1600,57 +1640,77 @@ def multistream_phase(fmn, seq) -> int:
     return launches
 
 
+def mesh_devices() -> list:
+    """Phase 14's stream mesh: on a machine with more than one card, the
+    first G cards, G the largest divisor of MS_STREAMS that is at most the
+    card count; on one card, two entries on cuda:0."""
+    cards = torch.cuda.device_count()
+    if cards == 1:
+        return ["cuda:0", "cuda:0"]
+    return [f"cuda:{i}" for i in range(max(g for g in range(1, cards + 1)
+                                           if MS_STREAMS % g == 0))]
+
+
 def multistream_kernel(fmn, sizes, pyr, levels):
-    """The multistream path's launch, in the kernels phase: the 8 streams'
-    pyramids (each room's first frame) through the op's vmap rule, one
-    launch over (64, 480, 640) with the level extents repeated 8 times,
+    """The multistream paths' launches, in the kernels phase: the 8
+    streams' pyramids (each room's first frame) through the op's vmap
+    rule, one launch over (64, 480, 640) with the level extents repeated 8
+    times (phases 11 and 13), and the first 8 / G of them, one launch over
+    (8 / G x 8, 480, 640) (a group of phase 14's mesh of G entries), each
     exact against the plain version and timed; and the host time per call
     of a direct launch, of the custom op and of the vmapped call on the
-    single path's pyramid ``pyr``. Returns (max abs error, the kernels
-    row's numbers)."""
+    single path's pyramid ``pyr``. Returns {streams: (max abs error, the
+    kernels row's numbers)} for 8 and 8 / G streams."""
     dev = pyr.device
     ms_poses = synthetic.orbit_trajectory(144, radius=0.1, advance=144 / 768)[:1]
     ms_rooms = [synthetic.default_room(seed=20 + s) for s in range(MS_STREAMS)]
     ms_gray = np.stack([np.clip(g, 0, 255).astype(np.uint8).astype(np.float32) for g, _ in
                         synthetic.render_rooms(ms_rooms, ms_poses, os.cpu_count() or 1)[0]])
-    ms_pyr = torch.stack([pyramid.build_pyramid(g, sizes)
-                          for g in torch.from_numpy(ms_gray).to(dev)])      # (8, 8, 480, 640)
+    all_pyr = torch.stack([pyramid.build_pyramid(g, sizes)
+                           for g in torch.from_numpy(ms_gray).to(dev)])     # (8, 8, 480, 640)
+    rows = {}
+    for n in (MS_STREAMS, MS_STREAMS // len(mesh_devices())):
+        ms_pyr = all_pyr[:n]
 
-    def ms_batched():
-        return torch.func.vmap(lambda p: fmn(p, levels))(ms_pyr)
+        def ms_batched():
+            return torch.func.vmap(lambda p: fmn(p, levels))(ms_pyr)
 
-    before = fmn.launches
-    b_out = ms_batched()
-    check(fmn.launches == before + 1, "the vmapped FAST call did not make one launch")
-    ms_flat = ms_pyr.reshape(-1, *ms_pyr.shape[2:])
-    ms_ext = fmn_mod.repeated_extents(levels, MS_STREAMS)
-    b_plain = fmn_mod.fast_margin_nms_plain(ms_flat, ms_ext).reshape(ms_pyr.shape)
-    torch.cuda.synchronize()
-    b_err = float((b_out - b_plain).abs().max())
-    b_exact = bool(torch.equal(b_out, b_plain))
-    print(f"kernel {fmn_mod.NAME} multistream_vmapped_level_extents {tuple(ms_flat.shape)}: "
-          f"tolerance exact, equal={b_exact} max_abs_err={b_err} "
-          f"nonzero={int((b_out > 0).sum())}")
-    check(b_exact, f"{fmn_mod.NAME} differs from its plain version at the multistream shape")
-    b_ms, b_runs, b_held = timing.loop_ms(ms_batched, launches=200)
-    b_plain_ms, _, _ = timing.loop_ms(
-        lambda: fmn_mod.fast_margin_nms_plain(ms_flat, ms_ext), launches=5, hold=False)
-    b_read = MS_STREAMS * sum(h * w for h, w in sizes)
-    b_bound, b_by = timing.bound(4 * b_read, 4 * ms_flat.numel(),
-                                 fmn_mod.OPS_PER_PIXEL * b_read)
-    # what the custom op's dispatch costs the host per call
-    dispatch = {"direct_launch_us": _host_us(lambda: fmn.launch(pyr, levels)),
+        before = fmn.launches
+        b_out = ms_batched()
+        check(fmn.launches == before + 1, "the vmapped FAST call did not make one launch")
+        ms_flat = ms_pyr.reshape(-1, *ms_pyr.shape[2:])
+        ms_ext = fmn_mod.repeated_extents(levels, n)
+        b_plain = fmn_mod.fast_margin_nms_plain(ms_flat, ms_ext).reshape(ms_pyr.shape)
+        torch.cuda.synchronize()
+        b_err = float((b_out - b_plain).abs().max())
+        b_exact = bool(torch.equal(b_out, b_plain))
+        print(f"kernel {fmn_mod.NAME} vmapped_{n}_streams_level_extents "
+              f"{tuple(ms_flat.shape)}: tolerance exact, equal={b_exact} max_abs_err={b_err} "
+              f"nonzero={int((b_out > 0).sum())}")
+        check(b_exact, f"{fmn_mod.NAME} differs from its plain version at "
+                       f"{tuple(ms_flat.shape)}")
+        b_ms, b_runs, b_held = timing.loop_ms(ms_batched, launches=200)
+        b_plain_ms, _, _ = timing.loop_ms(
+            lambda: fmn_mod.fast_margin_nms_plain(ms_flat, ms_ext), launches=5, hold=False)
+        b_read = n * sum(h * w for h, w in sizes)
+        b_bound, b_by = timing.bound(4 * b_read, 4 * ms_flat.numel(),
+                                     fmn_mod.OPS_PER_PIXEL * b_read)
+        out = {"timing": fmn_mod.NAME + " vmapped", "shape": list(ms_flat.shape),
+               "extents": f"level sizes repeated {n} times",
+               "ms": b_ms, "runs_ms": b_runs, "runs_queue_held": b_held,
+               "plain_ms": b_plain_ms, "bound_ms": b_bound, "bound_by": b_by,
+               "read_px": b_read, "write_px": ms_flat.numel(),
+               "card": timing.smi("name,power.limit")}
+        if n == MS_STREAMS:
+            # what the custom op's dispatch costs the host per call
+            out["host_dispatch_per_call"] = {
+                "direct_launch_us": _host_us(lambda: fmn.launch(pyr, levels)),
                 "custom_op_us": _host_us(lambda: fmn(pyr, levels)),
                 "vmapped_8_streams_us": _host_us(ms_batched)}
-    print(json.dumps({
-        "timing": fmn_mod.NAME + " vmapped", "shape": list(ms_flat.shape),
-        "extents": "level sizes repeated 8 times",
-        "ms": b_ms, "runs_ms": b_runs, "runs_queue_held": b_held, "plain_ms": b_plain_ms,
-        "bound_ms": b_bound, "bound_by": b_by, "read_px": b_read, "write_px": ms_flat.numel(),
-        "host_dispatch_per_call": dispatch,
-        "card": timing.smi("name,power.limit"),
-    }))
-    return b_err, {"ms": b_ms, "plain_ms": b_plain_ms, "bound_ms": b_bound, "bound_by": b_by}
+        print(json.dumps(out))
+        rows[n] = (b_err, {"ms": b_ms, "plain_ms": b_plain_ms, "bound_ms": b_bound,
+                           "bound_by": b_by})
+    return rows
 
 
 def _one_step(model, params, priors, cfg, batch, dev, dtype):
@@ -1711,14 +1771,11 @@ def train_full_width() -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from amos_slam_tpu_torch.models import configs, data
-    from amos_slam_tpu_torch.models.segmenter import flax_init_
     from amos_slam_tpu_torch.models.train import make_train_step
 
     cfg = configs.get_config(TRAIN_CFG)
     t = time.perf_counter()
-    model = cfg.build(device="cpu")
-    flax_init_(model, torch.Generator().manual_seed(0))
-    params = {k: v.clone() for k, v in model.state_dict().items()}
+    model, params = _init_weights(cfg)
     init_s = time.perf_counter() - t
     priors = torch.from_numpy(cfg.priors())
     ds = data.SyntheticShapes(size=cfg.img_size)
@@ -2131,6 +2188,363 @@ def pipeline_phase(fmn, seg, flag_seq, sys_seq, ms_seq) -> int:
         make_ms, run_ms, gate_ms, PIPE_MS_STEPS, "step", 2, MS_PROFILED)
     return flag + frame, ms
 
+
+def _sync(devices) -> None:
+    for d in dict.fromkeys(devices):
+        torch.cuda.synchronize(d)
+
+
+def _fast_kernels(prof) -> int:
+    """FAST kernel launches that a profiler window recorded on the device."""
+    return sum(e.count for e in prof.key_averages()
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+               and "fast_margin_nms_kernel" in e.key)
+
+
+def mesh_multistream(fmn, seq) -> dict:
+    """Phase 14 (1): MultiStreamSLAM over a stream mesh of G entries against
+    one group, in turns (G = 1, G, G, G = 1) on phase 11's frames."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from amos_slam_tpu_torch.parallel.multistream import MultiStreamSLAM, make_stream_mesh
+
+    S, n = MS_STREAMS, MESH_STEPS
+    poses, gray, depth = seq
+    g_dev, d_dev = _to_dev(gray[: 1 + n + MS_PROFILED], depth[: 1 + n + MS_PROFILED])
+    cfg = SystemConfig(use_dynamics=False)
+    cards = torch.cuda.device_count()
+    mesh = make_stream_mesh(mesh_devices())
+    one = make_stream_mesh(["cuda:0"])
+    G = len(mesh.devices)
+    print(f"mesh: {G} entries {[str(d) for d in mesh.devices]} on {cards} card(s)")
+    shapes = []
+
+    def recording(imgs, extents=None):
+        shapes.append(tuple(imgs.shape))
+        return type(fmn).launch(fmn, imgs, extents)
+
+    def run(m, profiled: bool) -> dict:
+        t_run = time.perf_counter()
+        slam = MultiStreamSLAM(cfg, S, m)
+        sups, resolve = {}, slam._resolve_step
+
+        def rec(st, heavy, frame, sup):
+            sups[frame] = np.array(sup)
+            return resolve(st, heavy, frame, sup)
+
+        slam._resolve_step = rec
+        _sync(m.devices)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fmn.launches = 0
+        shapes.clear()
+        fmn.launch = recording
+        try:
+            slam.initialize(g_dev[0], d_dev[0])
+            est, step_ms = [slam.state.Tcw.clone()], []
+            for k in range(1, 1 + n):
+                t = time.perf_counter()
+                T, _ = slam.step(g_dev[k], d_dev[k])
+                _sync(m.devices)
+                step_ms.append((time.perf_counter() - t) * 1e3)
+                est.append(T.clone())
+            slam.flush()
+        finally:
+            del fmn.launch
+        out = {"groups": len(m.devices), "est": torch.stack(est), "sups": sups,
+               "step_ms": step_ms, "launches": fmn.launches,
+               "launch_shapes": sorted(set(shapes)),
+               "peak_memory_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+               "state_devices": [str(st.Tcw.device) for st in slam._states],
+               "kf_frames": [[int(f) for f in mp.kf_frame_id[: mp.n_kfs]] for mp in slam.maps]}
+        if profiled:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for k in range(1 + n, 1 + n + MS_PROFILED):
+                    slam.step(g_dev[k], d_dev[k])
+                _sync(m.devices)
+            out["profile"] = device_profile(prof, MS_PROFILED)
+            out["fast_kernels_per_step"] = _fast_kernels(prof) / MS_PROFILED
+        out["run_s"] = time.perf_counter() - t_run
+        return out
+
+    runs = [run(m, p) for m, p in ((one, False), (mesh, True), (mesh, False), (one, False))]
+    ref, grouped = runs[0], runs[1]
+    gt_pos = evaluate.positions_from_cw(np.asarray(poses[: 1 + n]))
+    est = grouped["est"].cpu().numpy().astype(np.float64)
+    ates = [evaluate.ate_rmse(evaluate.positions_from_cw(est[:, s]), gt_pos) for s in range(S)]
+    pose_err = float((grouped["est"] - ref["est"]).abs().max())
+    sup_equal = all((grouped["sups"][k] == ref["sups"][k]).all() for k in range(1, 1 + n))
+    prof = grouped["profile"]
+    result = {
+        "mesh_multistream": f"MultiStreamSLAM(SystemConfig(use_dynamics=False), {S}, mesh) "
+                            f"over {n} steps of phase 11's rooms, runs G = 1, {G}, {G}, 1",
+        "mesh_devices": [str(d) for d in mesh.devices], "groups": G, "cards": cards,
+        "step_ms_median": [statistics.median(r["step_ms"]) for r in runs],
+        "step_ms": [r["step_ms"] for r in runs],
+        "run_s": [r["run_s"] for r in runs],
+        "fast_launches": [r["launches"] for r in runs],
+        "fast_launch_shapes": [r["launch_shapes"] for r in runs],
+        "fast_kernels_per_step_profiled": grouped["fast_kernels_per_step"],
+        "launches_per_step": prof["kernel_launches_per_frame"],
+        "device_ms_per_step": prof["device_kernel_ms_per_frame"],
+        "peak_memory_gib": [r["peak_memory_gib"] for r in runs],
+        "state_devices": grouped["state_devices"],
+        "vs_one_group": {"sup_equal": sup_equal, "pose_max_abs_err": pose_err,
+                         "keyframes_equal": grouped["kf_frames"] == ref["kf_frames"]},
+        "ate_m": ates, "keyframe_frames": grouped["kf_frames"],
+        "keyframes": [len(f) for f in grouped["kf_frames"]],
+        "card": timing.smi("name,power.limit"),
+    }
+    print(json.dumps(result))
+    L = cfg.orb.n_levels
+    for r in runs:
+        check(r["launches"] == r["groups"] * (n + 1),
+              f"mesh G={r['groups']}: {r['launches']} FAST launches in {n} steps + initialize")
+        check(r["launch_shapes"] == [(S // r["groups"] * L, 480, 640)],
+              f"mesh G={r['groups']}: FAST launch shapes {r['launch_shapes']}")
+    check(grouped["fast_kernels_per_step"] == G,
+          f"mesh: {grouped['fast_kernels_per_step']} FAST kernels per profiled step, not {G}")
+    check(grouped["state_devices"] == [str(d) for d in mesh.devices],
+          f"mesh: group states on {grouped['state_devices']}")
+    check(sup_equal, "mesh: sup rows differ from the one-group run")
+    check(pose_err < 1e-5, f"mesh: poses {pose_err} from the one-group run")
+    check(result["vs_one_group"]["keyframes_equal"], "mesh: keyframes differ from one group")
+    check(min(result["keyframes"]) >= 2, f"mesh: keyframes per stream {result['keyframes']}")
+    check(max(ates) < MS_ATE, f"mesh multistream ATE {ates}")
+    result["launches_one_group"] = runs[0]["launches"] + runs[3]["launches"]
+    result["launches_mesh"] = runs[1]["launches"] + runs[2]["launches"]
+    return result
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _train_batch(cfg, seed: int):
+    """One batch of ``cfg.batch_size`` augmented SyntheticShapes samples at
+    ``cfg.img_size``, on the host."""
+    from amos_slam_tpu_torch.models import data
+
+    ds = data.SyntheticShapes(size=cfg.img_size)
+    rng = np.random.default_rng(seed)
+    samples = [data.augment_sample(ds[i], rng) for i in range(cfg.batch_size)]
+    return data.samples_to_gt_batch(samples, cfg.img_size, cfg.max_objs, cfg.proto_shape,
+                                    device="cpu")
+
+
+def _init_weights(cfg):
+    from amos_slam_tpu_torch.models.segmenter import flax_init_
+
+    model = cfg.build(device="cpu")
+    flax_init_(model, torch.Generator().manual_seed(0))
+    return model, {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def nccl_one_rank() -> dict:
+    """Phase 14 (2): make_data_parallel_step over a 1-rank NCCL group
+    against make_train_step, yolact_resnet50 at its width and batch, the
+    same batch for DP_STEPS steps. On one rank the two steps do the same
+    arithmetic, but cuDNN's f32 backward at this width is not
+    reproducible run to run, and a chain of steps amplifies that gap (3
+    chained steps measured 2e-6 to 1.2e-5 in the loss parts on an H100).
+    So each step of both starts from the same state, the data-parallel
+    chain's, and is held to phase 12's one-step tolerances; the single
+    step is run twice from that state to show the card's own gap."""
+    import torch.distributed as dist
+
+    from amos_slam_tpu_torch.models import configs
+    from amos_slam_tpu_torch.models.train import make_train_step
+    from amos_slam_tpu_torch.parallel.data_parallel import make_data_parallel_step
+
+    def update_gap(a, b):
+        """(max over tensors of the momentum's max error over its max
+        |momentum|, the worst tensor), ``b`` the reference."""
+        gap = {k: float((a.opt_state[k] - m).abs().max()) / max(float(m.abs().max()), 1e-300)
+               for k, m in b.opt_state.items()}
+        worst = max(gap, key=gap.get)
+        return gap[worst], worst
+
+    cfg = configs.get_config(TRAIN_CFG)
+    model, params = _init_weights(cfg)
+    model.cuda()
+    priors = torch.from_numpy(cfg.priors()).cuda()
+    b = _train_batch(cfg, 3)
+    batch = type(b)(*(x.cuda() for x in b))
+    params = {k: v.cuda() for k, v in params.items()}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        hp = (cfg.lr, cfg.momentum, cfg.weight_decay)
+        init, step = make_train_step(model, priors, *hp)
+        dp_init, dp_step = make_data_parallel_step(model, priors, None, *hp)
+        state = dp_init(params)
+        check(all(torch.equal(state.params[k], v) for k, v in init(params).params.items()),
+              "nccl 1 rank: init changed the params")
+        rows = []
+        for i in range(DP_STEPS):
+            ms, out = {}, {}
+            for name, fn in (("single", step), ("data_parallel", dp_step),
+                             ("single_again", step)):
+                e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                e0.record()
+                out[name] = fn(state, batch)
+                e1.record()
+                torch.cuda.synchronize()
+                ms[name] = e0.elapsed_time(e1)
+            (ref, r_loss, r_aux), (got, d_loss, d_aux) = out["single"], out["data_parallel"]
+            parts = {"loss": (float(d_loss), float(r_loss)),
+                     **{k: (float(d_aux[k]), float(v)) for k, v in r_aux.items()}}
+            upd, worst = update_gap(got, ref)
+            rows.append({"step_ms": ms,
+                         "loss_part_rel_err": {k: abs(a - v) / abs(v)
+                                               for k, (a, v) in parts.items()},
+                         "update_err_over_max_worst": upd, "worst_tensor": worst,
+                         "single_vs_single_update_err_over_max":
+                             update_gap(out["single_again"][0], ref)[0]})
+            state = got
+            del out, ref
+    finally:
+        dist.destroy_process_group()
+    result = {"nccl_one_rank": f"{TRAIN_CFG}, {cfg.img_size} px, batch {cfg.batch_size}, f32, "
+                               f"{DP_STEPS} steps on one batch, make_data_parallel_step over a "
+                               "1-rank NCCL group vs make_train_step, each step from the "
+                               "data-parallel chain's state",
+              "nccl_version": ".".join(map(str, torch.cuda.nccl.version())),
+              "steps": rows, "card": timing.smi("name,power.limit")}
+    print(json.dumps(result))
+    part_tol, upd_tol = TRAIN_F32
+    for i, r in enumerate(rows):
+        check(max(r["loss_part_rel_err"].values()) < part_tol,
+              f"nccl 1 rank step {i}: loss parts {r['loss_part_rel_err']}")
+        check(r["update_err_over_max_worst"] < upd_tol,
+              f"nccl 1 rank step {i}: update {r['update_err_over_max_worst']} "
+              f"({r['worst_tensor']})")
+    del model, state, got, params
+    torch.cuda.empty_cache()
+    return result
+
+
+def _dp_rank(rank: int, addr: str, weights: dict, arrays: tuple, out_dir: str) -> None:
+    """One rank of phase 14 (3) on cuda:0: DP_STEPS float64 steps of
+    make_data_parallel_step on its half of the batch, results to out_dir."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from amos_slam_tpu_torch.models import configs
+    from amos_slam_tpu_torch.models.train import GTBatch
+    from amos_slam_tpu_torch.parallel.data_parallel import make_data_parallel_step
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=addr, world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        cfg = configs.yolact_tiny
+        model = cfg.build(device="cpu").to("cuda", torch.float64)
+        priors = torch.from_numpy(cfg.priors()).cuda()
+        init, step = make_data_parallel_step(model, priors, None, cfg.lr, cfg.momentum,
+                                             cfg.weight_decay)
+        half = slice(rank * cfg.batch_size // 2, (rank + 1) * cfg.batch_size // 2)
+        b = GTBatch(*(torch.from_numpy(a[half]).cuda() for a in arrays))
+        b = GTBatch(b.images.double(), b.boxes.double(), b.labels, b.masks.double())
+        state = init({k: torch.from_numpy(v).cuda() for k, v in weights.items()})
+        losses = []
+        for _ in range(DP_STEPS):
+            state, loss, aux = step(state, b)
+            losses.append([float(loss)] + [float(aux[k]) for k in ("loc", "conf", "mask")])
+        torch.save({"losses": losses,
+                    "params": {k: v.cpu() for k, v in state.params.items()},
+                    "momentum": {k: v.cpu() for k, v in state.opt_state.items()}},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def two_ranks_one_card() -> dict:
+    """Phase 14 (3): a 2-rank gloo group with both ranks on cuda:0 (NCCL
+    refuses a card shared by two ranks; spawned, joined with a timeout)
+    against the single-process float64 step on the full batch: yolact_tiny
+    at 128 px, batch 8."""
+    import tempfile
+
+    from amos_slam_tpu_torch.models import configs
+    from amos_slam_tpu_torch.models.train import GTBatch, make_train_step
+
+    cfg = configs.yolact_tiny
+    _, params = _init_weights(cfg)
+    weights = {k: v.double().numpy() for k, v in params.items()}
+    b = _train_batch(cfg, 4)
+    arrays = tuple(x.numpy() for x in b)
+    os.makedirs("build", exist_ok=True)
+    out_dir = tempfile.mkdtemp(dir="build")
+    ctx = torch.multiprocessing.get_context("spawn")
+    addr = f"tcp://localhost:{_free_port()}"
+    t = time.perf_counter()
+    procs = [ctx.Process(target=_dp_rank, args=(r, addr, weights, arrays, out_dir))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(DP_JOIN_S)
+    stuck = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    wall_s = time.perf_counter() - t
+    check(not stuck, f"2 ranks on one card: ranks {stuck} still running after "
+                     f"{DP_JOIN_S} s")
+    check([p.exitcode for p in procs] == [0, 0],
+          f"2 ranks on one card: exit codes {[p.exitcode for p in procs]}")
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(2)]
+
+    model = cfg.build(device="cpu").to("cuda", torch.float64)
+    init, step = make_train_step(model, torch.from_numpy(cfg.priors()).cuda(), cfg.lr,
+                                 cfg.momentum, cfg.weight_decay)
+    full = GTBatch(b.images.cuda().double(), b.boxes.cuda().double(), b.labels.cuda(),
+                   b.masks.cuda().double())
+    state = init({k: torch.from_numpy(v).cuda() for k, v in weights.items()})
+    p0 = {k: v.clone() for k, v in state.params.items()}
+    losses = []
+    for _ in range(DP_STEPS):
+        state, loss, aux = step(state, full)
+        losses.append([float(loss)] + [float(aux[k]) for k in ("loc", "conf", "mask")])
+    loss_err = max(abs(a - r) / abs(r) for a, r in zip(sum(ranks[0]["losses"], []),
+                                                       sum(losses, [])))
+    param_err = max(float((ranks[0]["params"][k] - p.cpu()).abs().max())
+                    / max(float((p - p0[k]).abs().max()), 1e-300)
+                    for k, p in state.params.items())
+    mom_err = max(float((ranks[0]["momentum"][k] - m.cpu()).abs().max())
+                  / max(float(m.abs().max()), 1e-300) for k, m in state.opt_state.items())
+    replicated = all(torch.equal(ranks[0]["params"][k], ranks[1]["params"][k])
+                     for k in ranks[0]["params"])
+    result = {"two_ranks_one_card": f"yolact_tiny, {cfg.img_size} px, batch {cfg.batch_size} "
+                                    f"(4 per rank), float64, {DP_STEPS} steps, gloo, "
+                                    "both ranks on cuda:0",
+              "wall_s_spawn_to_join": wall_s,
+              "loss_part_rel_err_max": loss_err, "param_err_over_change_max": param_err,
+              "momentum_err_over_max": mom_err, "params_equal_across_ranks": replicated,
+              "losses": losses, "card": timing.smi("name,power.limit")}
+    print(json.dumps(result))
+    check(replicated, "2 ranks on one card: params differ between the ranks")
+    for name, err in (("loss parts", loss_err), ("params", param_err), ("momentum", mom_err)):
+        check(err < DP_F64_TOL, f"2 ranks on one card: {name} {err} from the single step")
+    return result
+
+
+def multidevice_phase(fmn, ms_seq) -> tuple:
+    """Phase 14 (see the module docstring). Returns the FAST launches of
+    its one-group runs and of its runs over the mesh."""
+    mesh = mesh_multistream(fmn, ms_seq)
+    nccl_one_rank()
+    two_ranks_one_card()
+    return mesh["launches_one_group"], mesh["launches_mesh"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2234,9 +2648,9 @@ def main() -> int:
         "card": timing.smi("name,power.limit"),
     }))
 
-    # the multistream path's launch
-    b_err, b_row = multistream_kernel(fmn, sizes, pyr, levels)
-    max_err = max(max_err, b_err)
+    # the multistream paths' launches: 8 streams, and a group of phase 14's mesh
+    ms_rows = multistream_kernel(fmn, sizes, pyr, levels)
+    max_err = max([max_err] + [err for err, _ in ms_rows.values()])
 
     # 3. the main path
     odo = RGBDOdometry(cfg)
@@ -2317,6 +2731,8 @@ def main() -> int:
     # 13. pipelined host supervision against deterministic, in alternating blocks
     pipe_launches, pipe_ms_launches = timed("13 pipeline", pipeline_phase, fmn, seg, seq,
                                             sys_seq, ms_seq)
+    # 14. the multi-device paths: a stream mesh, a 1-rank NCCL group, 2 ranks on one card
+    mesh_one, mesh_groups = timed("14 multi-device", multidevice_phase, fmn, ms_seq)
     del seq, seg, sys_seq, ms_seq
     print(json.dumps({"phase_wall_s": phase_s, "total_s": time.perf_counter() - t0}))
     print(json.dumps({"fast_kernel_launches": {"odometry": launches, "system": sys_launches,
@@ -2327,8 +2743,11 @@ def main() -> int:
                                                "mono": mono_launches,
                                                "multistream": ms_launches,
                                                "pipeline": pipe_launches,
-                                               "pipeline_multistream": pipe_ms_launches}}))
+                                               "pipeline_multistream": pipe_ms_launches,
+                                               "mesh_one_group": mesh_one,
+                                               "mesh_groups": mesh_groups}}))
 
+    group = MS_STREAMS // len(mesh_devices())
     print(json.dumps({"kernels": [{
         "name": fmn_mod.NAME, "route": "cuda",
         "source": "amos_slam_tpu_torch/csrc/fast_margin_nms.cu",
@@ -2343,8 +2762,15 @@ def main() -> int:
         "name": fmn_mod.NAME + "_batched", "route": "cuda",
         "source": "amos_slam_tpu_torch/csrc/fast_margin_nms.cu",
         "replaces": "amos_slam_tpu/ops/pallas/fast_pallas.py:128",
-        "launches": ms_launches + pipe_ms_launches,
-        "max_abs_err": b_err, **b_row,
+        "launches": ms_launches + pipe_ms_launches + mesh_one,
+        "max_abs_err": ms_rows[MS_STREAMS][0], **ms_rows[MS_STREAMS][1],
+        "library_ms": None,
+    }, {
+        "name": fmn_mod.NAME + "_batched_mesh_group", "route": "cuda",
+        "source": "amos_slam_tpu_torch/csrc/fast_margin_nms.cu",
+        "replaces": "amos_slam_tpu/ops/pallas/fast_pallas.py:128",
+        "launches": mesh_groups,
+        "max_abs_err": ms_rows[group][0], **ms_rows[group][1],
         "library_ms": None,
     }]}))
     print(timing.smi("name,power.limit"))

@@ -222,10 +222,19 @@ def test_empty_views_and_mesh():
     mesh = tms.make_stream_mesh(["cpu"])
     slam = tms.MultiStreamSLAM(cfg(), 2, mesh)
     assert slam.device == torch.device("cpu") and slam.mesh.axis == "stream"
-    with pytest.raises(ValueError, match="one card"):
-        tms.shard_step(slam.pipeline, tms.make_stream_mesh(["cpu", "cpu"]))
-    with pytest.raises(ValueError, match="one card"):
-        tms.MultiStreamSLAM(cfg(), 2, tms.make_stream_mesh(["cpu", "cpu"]))
+    assert slam.groups == [slice(0, 2)]
+    # a mesh of two entries: two contiguous groups, in mesh order, on their devices
+    mesh2 = tms.make_stream_mesh(["cpu", "cpu"])
+    slam2 = tms.MultiStreamSLAM(cfg(), 6, mesh2)
+    assert slam2.groups == [slice(0, 3), slice(3, 6)]
+    assert slam2._where == [(0, 0), (0, 1), (0, 2), (1, 0), (1, 1), (1, 2)]
+    assert slam2.pipelines[0] is slam2.pipelines[1] is slam2.pipeline   # one device, one pipeline
+    assert all(m.device == torch.device("cpu") for m in slam2.maps)
+    x = np.arange(6 * 2, dtype=np.float32).reshape(6, 2)
+    parts = tms.split_streams(x, mesh2)
+    assert [p.tolist() for p in parts] == [x[:3].tolist(), x[3:].tolist()]
+    assert all(p.device == torch.device("cpu") for p in parts)
+    assert torch.equal(tms.gather_streams(parts, "cpu"), torch.from_numpy(x))   # stream order
 
 
 def test_live_maps_eight_streams():

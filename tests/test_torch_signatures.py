@@ -9,8 +9,10 @@ a ``jax.random`` key becomes a ``torch.Generator`` (RENAMED). Covered: the
 System and Segmenter entry points, the public functions, classes and
 methods of the loop-closing modules, the stereo / monocular modules, the
 dataset loaders, multistream SLAM, map checkpoints, the viewer, the native
-loader, the real-imagery replay and YOLACT's configs, data pipeline,
-training and eval, with the fields of their NamedTuples.
+loader, the real-imagery replay, YOLACT's configs, data pipeline,
+training and eval, with the fields of their NamedTuples, the projection
+and robust-weight helpers and ``utils.profiling``; and the data-parallel
+step's parameters against ``make_train_step``'s.
 """
 
 import importlib
@@ -76,6 +78,10 @@ CALLABLES = (
     + [("models.train", n) for n in ("multibox_loss", "make_train_step")]
     + [("models.eval", n) for n in ("box_iou", "mask_iou", "average_precision",
                                     "evaluate_detections")]
+    + [("geometry.triangulate", "projection_matrix")]
+    + [("solvers.robust", n) for n in ("huber_weight", "cauchy_weight", "weighted_normal_eq")]
+    + [("utils.profiling", n) for n in ("annotate", "device_trace", "SpanTimer.__init__",
+                                        "SpanTimer.span", "SpanTimer.report", "SpanTimer.reset")]
 )
 TUPLES = [("geometry.sim3", "Sim3"), ("loop.vocabulary", "Vocabulary"),
           ("solvers.sim3_solver", "Sim3RansacResult"), ("solvers.sim3_solver", "Sim3OptResult"),
@@ -135,3 +141,15 @@ def test_positional_calls_mean_the_same():
     g = inspect.signature(Segmenter.__init__)
     assert list(g.parameters)[1:4] == ["params", "generator", "num_classes"]
     assert g.parameters["device"].kind is inspect.Parameter.KEYWORD_ONLY
+
+
+def test_data_parallel_step_takes_the_train_step_parameters():
+    """``make_data_parallel_step`` (no JAX counterpart: JAX shards its
+    ``make_train_step`` with ``jit``) takes that function's parameters,
+    with the process group after ``priors``."""
+    from amos_slam_tpu_torch.parallel.data_parallel import make_data_parallel_step
+
+    j_pos, _, j_plain = params(resolve("amos_slam_tpu", "models.train", "make_train_step"))
+    t_pos, t_kw, t_plain = params(make_data_parallel_step)
+    assert t_pos == j_pos[:2] + ["group"] + j_pos[2:] and not t_kw, t_pos
+    assert t_plain == {**j_plain, "group": None}, t_plain
