@@ -265,9 +265,14 @@ The kernels phase also holds the FAST kernel against its plain version at
 the stereo path's (8, 376, 1241) with KITTI's level extents, at the
 multistream path's (64, 480, 640) (8 streams' pyramids through the op's
 vmap rule, the level extents repeated) and at a mesh group's (8 / G x 8,
-480, 640), times it at each, and measures the host time per call of a
-direct launch, of the custom op and of the vmapped call. The last three
-lines are the kernels JSON (the single route; the batched route at 8
+480, 640), and on a ragged (64, 256, 384) batch with -0.0 and negative
+values (1,575 active tiles: the persistent kernel); times it at each, and
+measures the host time per call of a direct launch, of the custom op and
+of the vmapped call. It also measures the issue rate of each instruction the
+kernels reduce with (tools/time_fast_kernel.py's pipe probe), from which
+each row gets its issue floor beside its bytes bound, and names the kernel
+(tiles or persistent) the wrapper picked for the row's shape. The last
+three lines are the kernels JSON (the single route; the batched route at 8
 streams, launched in phases 11 and 13 and in phase 14's one-group runs;
 the batched route at a mesh group's shape, launched in phase 14's mesh
 runs), the card's name and power limit (nvidia-smi), and {"ok": true,
@@ -296,6 +301,7 @@ from amos_slam_tpu_torch.ops.kernels import build
 from amos_slam_tpu_torch.ops.kernels import fast_margin_nms as fmn_mod
 from amos_slam_tpu_torch.ops.kernels import timing
 from amos_slam_tpu_torch.tools import loop_search
+from amos_slam_tpu_torch.tools import time_fast_kernel as tfk
 
 N_FRAMES = 30
 SYS_FRAMES = 64         # gated main run of the system phase
@@ -1651,7 +1657,7 @@ def mesh_devices() -> list:
                                            if MS_STREAMS % g == 0))]
 
 
-def multistream_kernel(fmn, sizes, pyr, levels):
+def multistream_kernel(fmn, sizes, pyr, levels, kernel_and_floor):
     """The multistream paths' launches, in the kernels phase: the 8
     streams' pyramids (each room's first frame) through the op's vmap
     rule, one launch over (64, 480, 640) with the level extents repeated 8
@@ -1660,7 +1666,8 @@ def multistream_kernel(fmn, sizes, pyr, levels):
     exact against the plain version and timed; and the host time per call
     of a direct launch, of the custom op and of the vmapped call on the
     single path's pyramid ``pyr``. Returns {streams: (max abs error, the
-    kernels row's numbers)} for 8 and 8 / G streams."""
+    kernels row's numbers)} for 8 and 8 / G streams; ``kernel_and_floor``
+    gives the kernel the wrapper picks for a shape and its issue floor."""
     dev = pyr.device
     ms_poses = synthetic.orbit_trajectory(144, radius=0.1, advance=144 / 768)[:1]
     ms_rooms = [synthetic.default_room(seed=20 + s) for s in range(MS_STREAMS)]
@@ -1695,10 +1702,12 @@ def multistream_kernel(fmn, sizes, pyr, levels):
         b_read = n * sum(h * w for h, w in sizes)
         b_bound, b_by = timing.bound(4 * b_read, 4 * ms_flat.numel(),
                                      fmn_mod.OPS_PER_PIXEL * b_read)
+        b_kernel, b_floor = kernel_and_floor(list(sizes) * n, *ms_flat.shape[1:])
         out = {"timing": fmn_mod.NAME + " vmapped", "shape": list(ms_flat.shape),
                "extents": f"level sizes repeated {n} times",
                "ms": b_ms, "runs_ms": b_runs, "runs_queue_held": b_held,
                "plain_ms": b_plain_ms, "bound_ms": b_bound, "bound_by": b_by,
+               "kernel": b_kernel, "issue_floor_ms": b_floor,
                "read_px": b_read, "write_px": ms_flat.numel(),
                "card": timing.smi("name,power.limit")}
         if n == MS_STREAMS:
@@ -1709,7 +1718,7 @@ def multistream_kernel(fmn, sizes, pyr, levels):
                 "vmapped_8_streams_us": _host_us(ms_batched)}
         print(json.dumps(out))
         rows[n] = (b_err, {"ms": b_ms, "plain_ms": b_plain_ms, "bound_ms": b_bound,
-                           "bound_by": b_by})
+                           "bound_by": b_by, "kernel": b_kernel, "issue_floor_ms": b_floor})
     return rows
 
 
@@ -2195,10 +2204,11 @@ def _sync(devices) -> None:
 
 
 def _fast_kernels(prof) -> int:
-    """FAST kernel launches that a profiler window recorded on the device."""
+    """FAST kernel launches (either route's kernel) that a profiler window
+    recorded on the device."""
     return sum(e.count for e in prof.key_averages()
                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-               and "fast_margin_nms_kernel" in e.key)
+               and any(name in e.key for name in fmn_mod.KERNEL_NAMES))
 
 
 def mesh_multistream(fmn, seq) -> dict:
@@ -2554,8 +2564,8 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    build.build([fmn_mod.NAME])
-    print(f"build: {fmn_mod.NAME} in {time.perf_counter() - t0:.2f} s")
+    build.build([fmn_mod.NAME, tfk.PROBE])   # the kernels and the issue-rate probe, in parallel
+    print(f"build: {fmn_mod.NAME}, {tfk.PROBE} in {time.perf_counter() - t0:.2f} s")
     print(build.log_path(fmn_mod.NAME).read_text().strip())
 
     cfg = SystemConfig()
@@ -2573,11 +2583,20 @@ def main() -> int:
     rand = torch.from_numpy(
         np.round(rng.uniform(-50, 255, (3, 70, 128))).astype(np.float32)).to(dev)
     ragged = torch.tensor([[70, 128], [37, 65], [1, 1]], dtype=torch.int32, device=dev)
+    # 1,575 active tiles, more than two waves (the persistent kernel),
+    # ragged, with regions of -0.0 beside +0.0 and negative values
+    wide = torch.from_numpy(
+        np.round(rng.uniform(-50, 255, (64, 256, 384))).astype(np.float32)).to(dev)
+    wide[0, 10:40, 10:90] = -0.0
+    wide[1, 20:60, 30:99] = 0.0
+    wide_ext = torch.tensor([[256 - 3 * i, 384 - 5 * i] for i in range(64)],
+                            dtype=torch.int32, device=dev)
     cases = {
         "pyramid_level_extents": (pyr, levels),
         "pyramid_whole_canvas": (pyr, None),
         "random_3x70x128_ragged_extents": (rand, ragged),
         "single_1x480x640": (gray0[None].contiguous(), None),
+        "random_64x256x384_ragged_negative_zero": (wide, wide_ext),
     }
     max_err = 0.0
     for name, (x, ext) in cases.items():
@@ -2586,8 +2605,12 @@ def main() -> int:
         torch.cuda.synchronize()
         err = float((out_k - out_p).abs().max())
         exact = bool(torch.equal(out_k, out_p))
+        n_active = fmn_mod.tile_table(
+            [(x.shape[1], x.shape[2])] * x.shape[0] if ext is None else ext.tolist(),
+            x.shape[1], x.shape[2])[1]
         print(f"kernel {fmn_mod.NAME} {name} {tuple(x.shape)}: tolerance exact, equal={exact} "
-              f"max_abs_err={err} nonzero={int((out_k > 0).sum())}")
+              f"max_abs_err={err} nonzero={int((out_k > 0).sum())} "
+              f"kernel={fmn.route_of(n_active, dev)}")
         check(exact, f"{fmn_mod.NAME} differs from its plain version on {name}")
         max_err = max(max_err, err)
 
@@ -2604,12 +2627,25 @@ def main() -> int:
     bound_ms, bound_by = timing.bound(4 * read_px, 4 * pyr.numel(), ops)
     mhz = timing.sm_mhz(smi_load + [smi_after])
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    # issue rates of the reductions' instructions, for each row's issue floor
+    probe = tfk.pipe_rates(mhz)
+    print(json.dumps({"pipe_probe": probe, "card": timing.smi("name,power.limit")}))
+    rates = probe["lanes_per_clock_per_sm"]
+
+    def kernel_and_floor(hw, H, W):
+        """The kernel the wrapper picks for these extents, and its issue floor."""
+        kernel = fmn.route_of(fmn_mod.tile_table(hw, H, W)[1], dev)
+        return kernel, tfk.issue_floor_ms(kernel, fmn_mod.margins_computed(hw, H, W),
+                                          rates, mhz, n_sm)
+
+    kernel, floor_ms = kernel_and_floor(sizes, *pyr.shape[1:])
     print(json.dumps({
         "timing": fmn_mod.NAME, "shape": list(pyr.shape), "extents": "level sizes",
         "method": "median of 5 runs x 200 launches between CUDA events / 200, "
                   "stream held by a spin kernel while the host enqueues",
         "ms": ms, "runs_ms": runs_ms, "runs_queue_held": held, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_ms": bound_ms, "bound_by": bound_by, "kernel": kernel,
+        "issue_floor_ms": floor_ms,
         "read_px": read_px, "write_px": pyr.numel(), "ops": ops,
         "ops_ms_one_per_lane_per_clock":
             None if mhz is None else timing.lane_ms(ops, mhz, n_sm),
@@ -2641,15 +2677,17 @@ def main() -> int:
         lambda: fmn_mod.fast_margin_nms_plain(kpyr, klevels), launches=10, hold=False)
     k_read = sum(h * w for h, w in ksizes)
     k_bound, k_by = timing.bound(4 * k_read, 4 * kpyr.numel(), fmn_mod.OPS_PER_PIXEL * k_read)
+    k_kernel, k_floor = kernel_and_floor(ksizes, *kpyr.shape[1:])
     print(json.dumps({
         "timing": fmn_mod.NAME, "shape": list(kpyr.shape), "extents": "KITTI level sizes",
         "ms": k_ms, "runs_ms": k_runs, "runs_queue_held": k_held, "plain_ms": k_plain_ms,
-        "bound_ms": k_bound, "bound_by": k_by, "read_px": k_read, "write_px": kpyr.numel(),
+        "bound_ms": k_bound, "bound_by": k_by, "kernel": k_kernel, "issue_floor_ms": k_floor,
+        "read_px": k_read, "write_px": kpyr.numel(),
         "card": timing.smi("name,power.limit"),
     }))
 
     # the multistream paths' launches: 8 streams, and a group of phase 14's mesh
-    ms_rows = multistream_kernel(fmn, sizes, pyr, levels)
+    ms_rows = multistream_kernel(fmn, sizes, pyr, levels, kernel_and_floor)
     max_err = max([max_err] + [err for err, _ in ms_rows.values()])
 
     # 3. the main path
@@ -2757,6 +2795,7 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
+        "kernel": kernel, "issue_floor_ms": floor_ms,
         "library_ms": None,
     }, {
         "name": fmn_mod.NAME + "_batched", "route": "cuda",

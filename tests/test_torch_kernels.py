@@ -32,6 +32,14 @@ EXTENT_CASES = {
     "equal_to_canvas": ((2, 96, 192), [[96, 192], [96, 192]], -50),
     "one_pixel": ((1, 480, 640), [[1, 1]], -50),
     "zero_tiles_beyond_tiny": ((2, 100, 300), [[1, 1], [5, 3]], -50),
+    # the batched route: multistream's 8 pyramids, a mesh group's 4
+    "multistream_levels": ((64, 480, 640), LEVELS * 8, -50),
+    "mesh_group_levels": ((32, 480, 640), LEVELS * 4, -50),
+    # ragged batches of more than one wave of active tiles, aligned and not
+    "ragged_beyond_one_wave": ((64, 256, 384), [[256 - 3 * i, 384 - 5 * i] for i in range(64)],
+                               -50),
+    "ragged_beyond_one_wave_odd_width": ((64, 100, 333),
+                                         [[100 - i, 333 - 3 * i] for i in range(64)], -50),
 }
 
 
@@ -200,3 +208,50 @@ def test_yolact_tiny_train_step_card_equals_cpu(cuda):
     for k, u in c_upd.items():
         err = float((upd[k] - u).abs().max())
         assert err <= 1e-3 * float(u.abs().max()), (k, err, float(u.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("force", ["tiles", "persistent"])
+@pytest.mark.parametrize("width", [160, 165])
+def test_fast_kernel_negative_zero_and_negatives(cuda, force, width):
+    """Both kernels, whatever the shape would route to, on an aligned width
+    (TMA and 16-byte paths) and an odd one (scalar paths): regions of -0.0
+    beside +0.0, and negative values (the keys reverse the negatives' order
+    and put -0 below +0)."""
+    x = _images(7, 24, 96, width, low=-50)
+    x[0, 10:20, 10:40] = -0.0
+    x[1, 30:50, 60:90] = 0.0
+    x[2, 5:25, 5:25] = -x[2, 5:25, 5:25].abs() - 1e-40
+    x = x.to(cuda)
+    ext = torch.tensor([[96 - i, width - 3 * i] for i in range(24)], dtype=torch.int32,
+                       device=cuda)
+    k = fmn_mod._FastMarginNMS(force=force)
+    out = k(x, ext)
+    torch.cuda.synchronize()
+    assert k.launches == 1
+    assert torch.equal(out, fmn_mod.fast_margin_nms_plain(x, ext))
+
+
+@pytest.mark.cuda
+def test_fast_kernel_route_by_shape(cuda):
+    """The wrapper picks the kernel by the number of active tiles against
+    the resident blocks of the persistent kernel: on an H100 the main
+    path's pyramid takes the tiles kernel, multistream's (64, 480, 640) and
+    a mesh group's (32, 480, 640) the persistent one, one launch each."""
+    fmn = fmn_mod.fast_margin_nms
+    wave = fmn.wave(cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert wave >= sms and wave % sms == 0
+    for S in (1, 4, 8):
+        x = _images(8, S * 8, 480, 640).to(cuda)
+        ext = torch.tensor(LEVELS * S, dtype=torch.int32, device=cuda)
+        _, n_active = fmn_mod.tile_table(LEVELS * S, 480, 640)
+        want = fmn_mod.route(n_active, wave)
+        assert want == ("persistent" if n_active > 2 * wave else "tiles")
+        assert fmn.route_of(n_active, cuda) == want
+        before = fmn.launches
+        out = fmn(x, ext)
+        torch.cuda.synchronize()
+        assert fmn.launches == before + 1
+        assert (fmn._table(x, ext).grid > 0) == (want == "persistent")
+        assert torch.equal(out, fmn_mod.fast_margin_nms_plain(x, ext))
