@@ -1,0 +1,9 @@
+"""device_idle_share (%): the share of the traced window in which nothing
+ran on the card: 1 - (union of device intervals / window)."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.window_s <= 0 or not t.device:
+        return None
+    return 100.0 * (1.0 - t.busy_s() / t.window_s)
