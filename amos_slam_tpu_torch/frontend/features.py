@@ -25,6 +25,7 @@ from ..ops import fast as fast_ops
 from ..ops import orb_descriptor as orb_ops
 from ..ops import pyramid as pyr_ops
 from ..ops.kernels.fast_margin_nms import fast_margin_nms
+from ..utils.profiling import span
 
 
 class Keypoints(NamedTuple):
@@ -83,54 +84,55 @@ class ORBPipeline:
     # -- stage 1 ----------------------------------------------------------
     def detect_keypoints(self, image: torch.Tensor):
         """image (H, W) [0,255] -> (Keypoints, pyramid, blurred, patches)."""
-        image = image.to(self.device, torch.float32)
-        pyr = pyr_ops.build_pyramid(image, self.sizes, self.resize_w)
-        blurred = pyr_ops.blur_pyramid(pyr)
+        with span("slam.orb.detect"):
+            image = image.to(self.device, torch.float32)
+            pyr = pyr_ops.build_pyramid(image, self.sizes, self.resize_w)
+            blurred = pyr_ops.blur_pyramid(pyr)
 
-        # FAST margin + NMS for all levels in one kernel launch. Each level
-        # is its own image: circle reads wrap within its zero-padded H x W
-        # slot, not within the level, and the margins are kept only inside
-        # the level's extent. Both the wrap and the padding reach no further
-        # than the detection border, which the selection masks.
-        margins = fast_margin_nms(pyr, self.level_extents)
+            # FAST margin + NMS for all levels in one kernel launch. Each level
+            # is its own image: circle reads wrap within its zero-padded H x W
+            # slot, not within the level, and the margins are kept only inside
+            # the level's extent. Both the wrap and the padding reach no further
+            # than the detection border, which the selection masks.
+            margins = fast_margin_nms(pyr, self.level_extents)
 
-        per_level = []
-        for lvl, ((h, w), budget) in enumerate(zip(self.sizes, self.budgets)):
-            if budget <= 0:
-                continue
-            lk = fast_ops.select_from_margin(
-                margins[lvl], (h, w), budget,
-                min_th=self.orb.min_th_fast,
-                border=self.orb.border,
-                cell=self.orb.cell_size,
+            per_level = []
+            for lvl, ((h, w), budget) in enumerate(zip(self.sizes, self.budgets)):
+                if budget <= 0:
+                    continue
+                lk = fast_ops.select_from_margin(
+                    margins[lvl], (h, w), budget,
+                    min_th=self.orb.min_th_fast,
+                    border=self.orb.border,
+                    cell=self.orb.cell_size,
+                )
+                per_level.append((lvl, lk))
+
+            yx = torch.cat([lk.yx for _, lk in per_level])
+            score = torch.cat([lk.score for _, lk in per_level])
+            valid = torch.cat([lk.valid for _, lk in per_level])
+            level = torch.cat([
+                torch.full((lk.yx.shape[0],), l, dtype=torch.int32, device=self.device)
+                for l, lk in per_level
+            ])
+            pad = self.capacity - yx.shape[0]
+            if pad > 0:
+                yx = F.pad(yx, (0, 0, 0, pad))
+                score = F.pad(score, (0, pad))
+                valid = F.pad(valid, (0, pad))
+                level = F.pad(level, (0, pad))
+
+            # One patch per keypoint from the blurred pyramid feeds both the
+            # orientation and the descriptor sampler.
+            patches = orb_ops.gather_patches(blurred, level, yx)
+            angle = orb_ops.orientations_from_patches(patches)
+            scale = self.scales[level.long()]
+            xy0 = torch.stack([yx[:, 1] * scale, yx[:, 0] * scale], dim=-1)
+            kp = Keypoints(
+                xy=xy0, level=level, response=score, angle=angle,
+                yx_level=yx, valid=valid,
             )
-            per_level.append((lvl, lk))
-
-        yx = torch.cat([lk.yx for _, lk in per_level])
-        score = torch.cat([lk.score for _, lk in per_level])
-        valid = torch.cat([lk.valid for _, lk in per_level])
-        level = torch.cat([
-            torch.full((lk.yx.shape[0],), l, dtype=torch.int32, device=self.device)
-            for l, lk in per_level
-        ])
-        pad = self.capacity - yx.shape[0]
-        if pad > 0:
-            yx = F.pad(yx, (0, 0, 0, pad))
-            score = F.pad(score, (0, pad))
-            valid = F.pad(valid, (0, pad))
-            level = F.pad(level, (0, pad))
-
-        # One patch per keypoint from the blurred pyramid feeds both the
-        # orientation and the descriptor sampler.
-        patches = orb_ops.gather_patches(blurred, level, yx)
-        angle = orb_ops.orientations_from_patches(patches)
-        scale = self.scales[level.long()]
-        xy0 = torch.stack([yx[:, 1] * scale, yx[:, 0] * scale], dim=-1)
-        kp = Keypoints(
-            xy=xy0, level=level, response=score, angle=angle,
-            yx_level=yx, valid=valid,
-        )
-        return kp, pyr, blurred, patches
+            return kp, pyr, blurred, patches
 
     # -- stage 2 ----------------------------------------------------------
     def describe(
@@ -146,34 +148,35 @@ class ORBPipeline:
         position lands on a nonzero pixel are dropped (reference
         MovingKeyPoints, src/ORBextractor.cc:1688-1745).
         """
-        valid = kp.valid
-        H, W = self.cam_cfg.height, self.cam_cfg.width
-        xi = torch.clamp(torch.round(kp.xy[:, 0]).long(), 0, W - 1)
-        yi = torch.clamp(torch.round(kp.xy[:, 1]).long(), 0, H - 1)
-        if suppress_mask is not None:
-            hit = suppress_mask.to(self.device, torch.int32)[yi, xi] > 0
-            valid = valid & ~hit
+        with span("slam.orb.describe"):
+            valid = kp.valid
+            H, W = self.cam_cfg.height, self.cam_cfg.width
+            xi = torch.clamp(torch.round(kp.xy[:, 0]).long(), 0, W - 1)
+            yi = torch.clamp(torch.round(kp.xy[:, 1]).long(), 0, H - 1)
+            if suppress_mask is not None:
+                hit = suppress_mask.to(self.device, torch.int32)[yi, xi] > 0
+                valid = valid & ~hit
 
-        desc = orb_ops.descriptors_from_patches(patches, kp.angle, self.sample_table)
-        xy_un = undistort_points(self.cam, kp.xy)
+            desc = orb_ops.descriptors_from_patches(patches, kp.angle, self.sample_table)
+            xy_un = undistort_points(self.cam, kp.xy)
 
-        none = torch.full((self.capacity,), -1.0, dtype=torch.float32,
-                          device=self.device)
-        if depth_image is not None:
-            d = depth_image.to(self.device, torch.float32)[yi, xi]
-            has_d = (d > 0.0) & valid
-            u_right = torch.where(
-                has_d, xy_un[:, 0] - self.cam.bf / torch.clamp(d, min=1e-6), none
+            none = torch.full((self.capacity,), -1.0, dtype=torch.float32,
+                              device=self.device)
+            if depth_image is not None:
+                d = depth_image.to(self.device, torch.float32)[yi, xi]
+                has_d = (d > 0.0) & valid
+                u_right = torch.where(
+                    has_d, xy_un[:, 0] - self.cam.bf / torch.clamp(d, min=1e-6), none
+                )
+                depth = torch.where(has_d, d, none)
+            else:
+                depth, u_right = none, none
+
+            inv_sigma2 = 1.0 / (self.scales[kp.level.long()] ** 2)
+            return FrameFeatures(
+                kp=kp, xy_un=xy_un, desc=desc, depth=depth, u_right=u_right,
+                inv_sigma2=inv_sigma2, valid=valid,
             )
-            depth = torch.where(has_d, d, none)
-        else:
-            depth, u_right = none, none
-
-        inv_sigma2 = 1.0 / (self.scales[kp.level.long()] ** 2)
-        return FrameFeatures(
-            kp=kp, xy_un=xy_un, desc=desc, depth=depth, u_right=u_right,
-            inv_sigma2=inv_sigma2, valid=valid,
-        )
 
     def extract(self, image, depth_image=None, suppress_mask=None) -> FrameFeatures:
         """Full extraction in one call (non-dynamic path)."""

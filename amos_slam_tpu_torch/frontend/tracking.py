@@ -35,6 +35,7 @@ from ..ops.slic import dilate_mask
 from ..ops.stereo import match_stereo
 from ..slam_map.slam_map import LocalMapTrackResult, LocalView, track_local_map
 from ..solvers.pose_opt import PoseObs, optimize_pose
+from ..utils.profiling import span
 from .dynamics import compute_dynamics, config_kwargs
 from .features import FrameFeatures, ORBPipeline
 
@@ -178,31 +179,32 @@ def _track_tail(pipe, feats, last, last_Tcw, velocity, view, mm_radius,
     pose (or the last pose, with a wider window, when it failed), the
     pose/velocity update with its own LOST fallback, the packed
     supervision and the stats accumulator."""
-    T_pred = se3.orthonormalize(velocity @ last_Tcw)
-    mm = track_motion_model(
-        pipe.cam, feats, last, last_Tcw, T_pred, mm_radius,
-        pts_w=pts_w, has_point=has_point, two_pass=two_pass,
-    )
-    ok_mm = mm.num_inliers >= 10
-    T0 = torch.where(ok_mm, mm.Tcw, last_Tcw)
-    # widen the map window when the motion model failed (retry ladder)
-    lm = track_local_map(
-        pipe.cam, feats, view, T0, torch.where(ok_mm, map_radius, map_radius * 3.0)
-    )
-    ok_lm = lm.num_inliers >= min_lm
-    Tcw = torch.where(ok_lm, lm.Tcw, T0)
-    tracked = ok_lm | ok_mm
-    eye = torch.eye(4, dtype=Tcw.dtype, device=Tcw.device)
-    vel_new = torch.where(
-        tracked, se3.orthonormalize(Tcw @ se3.inv_T(last_Tcw)), eye)
-    Tcw = torch.where(tracked, Tcw, last_Tcw)
-    counts = torch.stack([mm.num_inliers, lm.num_inliers])
-    sup, sup_heavy = _pack_supervision(counts, lm, feats)
-    return FusedStepResult(
-        feats=feats, lm=lm, Tcw=Tcw, velocity=vel_new, counts=counts,
-        sup=sup, sup_heavy=sup_heavy,
-        stats_acc=_accumulate_stats(stats_acc, lm),
-    )
+    with span("slam.track"):
+        T_pred = se3.orthonormalize(velocity @ last_Tcw)
+        mm = track_motion_model(
+            pipe.cam, feats, last, last_Tcw, T_pred, mm_radius,
+            pts_w=pts_w, has_point=has_point, two_pass=two_pass,
+        )
+        ok_mm = mm.num_inliers >= 10
+        T0 = torch.where(ok_mm, mm.Tcw, last_Tcw)
+        # widen the map window when the motion model failed (retry ladder)
+        lm = track_local_map(
+            pipe.cam, feats, view, T0, torch.where(ok_mm, map_radius, map_radius * 3.0)
+        )
+        ok_lm = lm.num_inliers >= min_lm
+        Tcw = torch.where(ok_lm, lm.Tcw, T0)
+        tracked = ok_lm | ok_mm
+        eye = torch.eye(4, dtype=Tcw.dtype, device=Tcw.device)
+        vel_new = torch.where(
+            tracked, se3.orthonormalize(Tcw @ se3.inv_T(last_Tcw)), eye)
+        Tcw = torch.where(tracked, Tcw, last_Tcw)
+        counts = torch.stack([mm.num_inliers, lm.num_inliers])
+        sup, sup_heavy = _pack_supervision(counts, lm, feats)
+        return FusedStepResult(
+            feats=feats, lm=lm, Tcw=Tcw, velocity=vel_new, counts=counts,
+            sup=sup, sup_heavy=sup_heavy,
+            stats_acc=_accumulate_stats(stats_acc, lm),
+        )
 
 
 def _frame_step_core(

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..utils.profiling import span
 from .yolact import (IMG_SIZE, MEANS, STD, Resize, Yolact, assemble_masks, detect,
                      make_priors)
 
@@ -98,17 +99,19 @@ class Segmenter:
     def raw(self, rgbs) -> Tuple[torch.Tensor, ...]:
         """(B, H, W, 3) RGB images -> the net's (loc, conf, coef, proto),
         cast to f32: what detection reads."""
-        rgbs = self._upload(rgbs)
-        size = (self.img_size, self.img_size)
-        img = self._resize_in(rgbs.permute(0, 3, 1, 2), size)    # (B, 3, S, S) RGB
-        x = ((img.flip(1) - self._means) * self._inv_std).to(self.compute_dtype)
-        return tuple(t.float() for t in self.model(x))
+        with span("slam.segmenter.net"):
+            rgbs = self._upload(rgbs)
+            size = (self.img_size, self.img_size)
+            img = self._resize_in(rgbs.permute(0, 3, 1, 2), size)    # (B, 3, S, S) RGB
+            x = ((img.flip(1) - self._means) * self._inv_std).to(self.compute_dtype)
+            return tuple(t.float() for t in self.model(x))
 
     def _masks(self, rgbs: torch.Tensor) -> torch.Tensor:
         B, H, W, _ = rgbs.shape
         loc, conf, coef, proto = self.raw(rgbs)
-        det = detect(loc, conf, coef, self.priors, top_k=self.top_k, conf_th=self.score_th)
-        is_person = (det.classes[..., None] == self._pc).any(dim=-1)
-        masks = assemble_masks(proto, det) & (is_person & det.valid)[..., None, None]
-        union = masks.any(dim=1).float()
-        return self._resize_out(union, (H, W)) > 0.5
+        with span("slam.segmenter.masks"):
+            det = detect(loc, conf, coef, self.priors, top_k=self.top_k, conf_th=self.score_th)
+            is_person = (det.classes[..., None] == self._pc).any(dim=-1)
+            masks = assemble_masks(proto, det) & (is_person & det.valid)[..., None, None]
+            union = masks.any(dim=1).float()
+            return self._resize_out(union, (H, W)) > 0.5

@@ -40,6 +40,7 @@ from ..device import resolve_device
 from ..frontend.features import FrameFeatures, ORBPipeline
 from ..frontend.tracking import fused_frame_step, index_tree, stack_tree
 from ..slam_map.slam_map import LocalView, SlamMap
+from ..utils.profiling import span
 
 
 class StreamState(NamedTuple):
@@ -313,10 +314,11 @@ class MultiStreamSLAM:
         self._refresh_views()
 
     def _refresh_views(self):
-        self._views = tuple(
-            stack_tree([self.maps[s].local_view(self.ref_kf[s])
-                        for s in range(sl.start, sl.stop)])
-            for sl in self.groups)
+        with span("slam.map.view"):
+            self._views = tuple(
+                stack_tree([self.maps[s].local_view(self.ref_kf[s])
+                            for s in range(sl.start, sl.stop)])
+                for sl in self.groups)
 
     # -- per-frame step ------------------------------------------------
     def step(self, images, depths):
@@ -331,17 +333,19 @@ class MultiStreamSLAM:
         )
         self._states = st
         self._reader.submit((gather_streams(sups, self.device), (st, heavy, self.frame)))
-        self._reader.wait_until(2)
-        for done in self._reader.drain():
-            self._resolve_step(*done)
+        with span("slam.supervision"):
+            self._reader.wait_until(2)
+            for done in self._reader.drain():
+                self._resolve_step(*done)
         return gather_streams([x.Tcw for x in st], self.device), self.last_sup
 
     def flush(self):
         """Resolve every supervision read in flight (call before reading
         the maps or trajectories at the end of a run)."""
-        for done in self._reader.flush():
-            self._resolve_step(*done)
-        self._fetcher.flush()
+        with span("slam.supervision"):
+            for done in self._reader.flush():
+                self._resolve_step(*done)
+            self._fetcher.flush()
 
     def _resolve_step(self, st, heavy, frame, sup_np):
         self.last_sup = sup_np
@@ -380,43 +384,46 @@ class MultiStreamSLAM:
     def _insert_rows(self, need, rows, st, frame):
         N = self.cfg.orb.max_kpts
         for (s, inl, matched), hv in zip(need, rows):
-            g, i = self._where[s]
-            feats_s = index_tree(st[g].feats, i)
-            kp = hv[:N].astype(np.int64) if matched else np.full(
-                N, -1, np.int64
-            )
-            valid = hv[N: 2 * N] > 0
-            close = hv[2 * N:] > 0
-            m = self.maps[s]
-            if m.n_kfs >= m.K - 2:
-                if m.kf_alive[: m.n_kfs].all():
-                    m.grow_keyframes()
+            with span("slam.kf.insert", frame):
+                g, i = self._where[s]
+                feats_s = index_tree(st[g].feats, i)
+                kp = hv[:N].astype(np.int64) if matched else np.full(
+                    N, -1, np.int64
+                )
+                valid = hv[N: 2 * N] > 0
+                close = hv[2 * N:] > 0
+                m = self.maps[s]
+                if m.n_kfs >= m.K - 2:
+                    if m.kf_alive[: m.n_kfs].all():
+                        m.grow_keyframes()
+                    else:
+                        lut = m.compact_keyframes()
+                        if lut is not None:
+                            self.ref_kf[s] = (
+                                int(lut[self.ref_kf[s]])
+                                if lut[self.ref_kf[s]] >= 0 else m.n_kfs - 1
+                            )
+                self.ref_kf[s] = m.insert_keyframe(
+                    feats_s, st[g].Tcw[i], kp, frame,
+                    valid_close=(valid, close),
+                )
+                self.last_kf_frame[s] = frame
+                self.last_kf_inliers[s] = inl
+                # keyframe-rate maintenance for this stream: triangulate new
+                # landmarks with covisible neighbours, then local BA
+                slot = self.ref_kf[s]
+                with span("slam.kf.triangulate", frame):
+                    disp = m.create_new_points_dispatch(slot)
+                if disp is None:
+                    self._local_ba(m, slot)
                 else:
-                    lut = m.compact_keyframes()
-                    if lut is not None:
-                        self.ref_kf[s] = (
-                            int(lut[self.ref_kf[s]])
-                            if lut[self.ref_kf[s]] >= 0 else m.n_kfs - 1
-                        )
-            self.ref_kf[s] = m.insert_keyframe(
-                feats_s, st[g].Tcw[i], kp, frame,
-                valid_close=(valid, close),
-            )
-            self.last_kf_frame[s] = frame
-            self.last_kf_inliers[s] = inl
-            # keyframe-rate maintenance for this stream: triangulate new
-            # landmarks with covisible neighbours, then local BA
-            slot = self.ref_kf[s]
-            disp = m.create_new_points_dispatch(slot)
-            if disp is None:
-                self._local_ba(m, slot)
-            else:
-                self._fetcher.submit(disp["packed"], self._triangulated(m, slot, disp))
+                    self._fetcher.submit(disp["packed"], self._triangulated(m, slot, disp, frame))
 
-    def _triangulated(self, m: SlamMap, slot: int, disp: dict):
+    def _triangulated(self, m: SlamMap, slot: int, disp: dict, frame: int):
         """The continuation of one stream's triangulation table."""
         def resolve(packed):
-            m.create_new_points_resolve(slot, disp, packed)
+            with span("slam.kf.triangulate", frame):
+                m.create_new_points_resolve(slot, disp, packed)
             self._local_ba(m, slot)
         return resolve
 

@@ -28,6 +28,7 @@ from ..geometry.camera import Camera, in_image, project
 from ..ops import hamming
 from ..solvers.local_ba import BAProblem, solve_local_ba
 from ..solvers.pose_opt import PoseObs, optimize_pose
+from ..utils.profiling import span
 from .map_state import (
     MapArrays,
     add_points_kernel,
@@ -978,43 +979,44 @@ class SlamMap:
         """Local BA around ``center_slot`` (Optimizer::LocalBundleAdjustment
         contract: covisible window free, frontier fixed). Returns whether a
         solve ran."""
-        Lw = self.cfg.map.local_window
-        Fw = self.cfg.map.fixed_window
-        Vba = self.cfg.map.ba_max_points
-        window = self.local_keyframes(center_slot, Lw)
-        pt_ids = self.local_point_ids(window)
-        P = min(len(pt_ids), Vba)
-        if P == 0 or len(window) < 2:
-            return False
-        if len(pt_ids) > P:
-            order = np.argsort(-self.pt_obs_count[pt_ids])
-            pt_ids = pt_ids[order[:P]]
+        with span("slam.kf.local_ba", self.kf_frame_id[center_slot]):
+            Lw = self.cfg.map.local_window
+            Fw = self.cfg.map.fixed_window
+            Vba = self.cfg.map.ba_max_points
+            window = self.local_keyframes(center_slot, Lw)
+            pt_ids = self.local_point_ids(window)
+            P = min(len(pt_ids), Vba)
+            if P == 0 or len(window) < 2:
+                return False
+            if len(pt_ids) > P:
+                order = np.argsort(-self.pt_obs_count[pt_ids])
+                pt_ids = pt_ids[order[:P]]
 
-        # frontier: KFs observing local points but outside the window
-        inset = np.zeros(self.n_kfs, bool)
-        inset[window] = True
-        obs = self.kf_obs_np[: self.n_kfs]
-        pt_set = np.zeros(self.M, bool)
-        pt_set[pt_ids] = True
-        observes = (pt_set[np.maximum(obs, 0)] & (obs >= 0)).any(axis=1)
-        frontier = np.where(observes & ~inset)[0][:Fw]
+            # frontier: KFs observing local points but outside the window
+            inset = np.zeros(self.n_kfs, bool)
+            inset[window] = True
+            obs = self.kf_obs_np[: self.n_kfs]
+            pt_set = np.zeros(self.M, bool)
+            pt_set[pt_ids] = True
+            observes = (pt_set[np.maximum(obs, 0)] & (obs >= 0)).any(axis=1)
+            frontier = np.where(observes & ~inset)[0][:Fw]
 
-        slots = np.concatenate([window, frontier])
-        free = np.concatenate([np.ones(len(window), bool), np.zeros(len(frontier), bool)])
-        # gauge: if nothing is fixed, fix the first window KF
-        if len(frontier) == 0:
-            free[0] = False
+            slots = np.concatenate([window, frontier])
+            free = np.concatenate([np.ones(len(window), bool), np.zeros(len(frontier), bool)])
+            # gauge: if nothing is fixed, fix the first window KF
+            if len(frontier) == 0:
+                free[0] = False
 
-        slots_p, slot_valid, free_p, obs_local, pt_ids_p, perm = self._ba_host_prep(
-            slots, free, pt_ids, Lw + Fw, Vba)
-        self.version += 1
-        self.arrays = _local_ba_fused(
-            self.arrays, self.cam,
-            self._t(slots_p), self._t(slot_valid, torch.bool),
-            self._t(free_p & slot_valid, torch.bool), self._t(obs_local),
-            self._t(pt_ids_p), self._t(perm),
-        )
-        return True
+            slots_p, slot_valid, free_p, obs_local, pt_ids_p, perm = self._ba_host_prep(
+                slots, free, pt_ids, Lw + Fw, Vba)
+            self.version += 1
+            self.arrays = _local_ba_fused(
+                self.arrays, self.cam,
+                self._t(slots_p), self._t(slot_valid, torch.bool),
+                self._t(free_p & slot_valid, torch.bool), self._t(obs_local),
+                self._t(pt_ids_p), self._t(perm),
+            )
+            return True
 
     # -- maintenance -----------------------------------------------------------
     def bump_stats(self, visible_ids: torch.Tensor, found_ids: torch.Tensor):
