@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.profiling import span
 from .train import GTBatch
 from .yolact import MEANS, STD
 
@@ -408,7 +409,9 @@ class DataLoader:
     The host thread decodes + augments + pads the NEXT batch and uploads it
     to ``device`` (the CUDA card by default) while the device runs the
     current step (the reference's DataLoader worker pool; one thread, as in
-    the JAX package: PIL/numpy release the GIL for the heavy parts)."""
+    the JAX package: PIL/numpy release the GIL for the heavy parts).
+    ``batches`` counts the batches handed out, ``waits`` those the caller
+    had to wait for (the queue was empty; the span ``train.loader.wait``)."""
 
     def __init__(
         self,
@@ -433,6 +436,8 @@ class DataLoader:
         self.rng = np.random.default_rng(seed)
 
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
+        self.batches = 0
+        self.waits = 0
         self._stop = False
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
@@ -467,7 +472,14 @@ class DataLoader:
         return self
 
     def __next__(self):
-        return self._q.get()
+        try:
+            batch = self._q.get_nowait()
+        except queue.Empty:
+            self.waits += 1
+            with span("train.loader.wait"):
+                batch = self._q.get()
+        self.batches += 1
+        return batch
 
     def stop(self):
         self._stop = True

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
+from ..utils.profiling import span
 from .yolact import Yolact, linspace01
 
 
@@ -145,6 +146,14 @@ def multibox_loss(
     OHEM cross-entropy conf (neg:pos = 3), BCE on assembled+cropped masks.
     Returns (loss, {"loc", "conf", "mask"}), each a batch mean."""
     loc, conf, coef, proto = functional_call(model, params, (batch.images,), strict=True)
+    with span("train.loss"):
+        return _loss(loc, conf, coef, proto, priors, batch, pos_iou, neg_ratio, mask_weight,
+                     box_weight)
+
+
+def _loss(loc, conf, coef, proto, priors, batch: GTBatch, pos_iou: float, neg_ratio: int,
+          mask_weight: float, box_weight: float):
+    """:func:`multibox_loss` from the net's outputs."""
     P = loc.shape[1]
     priors = torch.as_tensor(priors, dtype=torch.float32, device=loc.device)
     pos, gt_idx = _match(priors, batch.boxes, batch.labels, pos_iou)
@@ -187,11 +196,12 @@ def value_and_grads(model: Yolact, priors: torch.Tensor, params: Dict[str, torch
                     batch: GTBatch):
     """(loss, aux, grads) of :func:`multibox_loss` at ``params``: ``grads``
     a list in the dict's key order, every tensor differentiated."""
-    keys = list(params)
-    leaves = [params[k].detach().requires_grad_() for k in keys]
-    loss, aux = multibox_loss(model, dict(zip(keys, leaves)), priors, batch)
-    grads = list(torch.autograd.grad(loss, leaves))
-    return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
+    with span("train.grads"):
+        keys = list(params)
+        leaves = [params[k].detach().requires_grad_() for k in keys]
+        loss, aux = multibox_loss(model, dict(zip(keys, leaves)), priors, batch)
+        grads = list(torch.autograd.grad(loss, leaves))
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
 
 
 @torch.no_grad()
@@ -201,12 +211,13 @@ def sgd_update(state: TrainState, grads, lr: float, momentum: float,
     key order of ``state.params``): optax's ``chain(add_decayed_weights(
     weight_decay), sgd(lr, momentum))`` written out, ``g' = g + wd * p``,
     ``m = g' + momentum * m`` (``m`` starting at zero), ``p = p - lr * m``."""
-    keys = list(state.params)
-    p = [state.params[k] for k in keys]
-    g = torch._foreach_add(list(grads), p, alpha=weight_decay)
-    m = torch._foreach_add(g, [state.opt_state[k] for k in keys], alpha=momentum)
-    new_p = torch._foreach_add(p, m, alpha=-lr)
-    return TrainState(dict(zip(keys, new_p)), dict(zip(keys, m)), state.step + 1)
+    with span("train.sgd"):
+        keys = list(state.params)
+        p = [state.params[k] for k in keys]
+        g = torch._foreach_add(list(grads), p, alpha=weight_decay)
+        m = torch._foreach_add(g, [state.opt_state[k] for k in keys], alpha=momentum)
+        new_p = torch._foreach_add(p, m, alpha=-lr)
+        return TrainState(dict(zip(keys, new_p)), dict(zip(keys, m)), state.step + 1)
 
 
 def init_train_state(params) -> TrainState:

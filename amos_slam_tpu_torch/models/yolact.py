@@ -48,9 +48,9 @@ class Resize(nn.Module):
     """``jax.image.resize(x, ..., "bilinear")`` over the last two axes of
     (..., H, W). ``h_first`` is the axis XLA contracts first: H for the
     NHWC activations and the output mask, W for the input frames.
-    Products run in f32 on the dtype-rounded weights and round to x's
-    dtype after each axis. Weights are cached per shape, dtype and
-    device."""
+    Products run in f32 (float64 for float64 x) on the dtype-rounded
+    weights and round to x's dtype after each axis. Weights are cached per
+    shape, dtype and device."""
 
     def __init__(self, h_first: bool = True):
         super().__init__()
@@ -60,18 +60,21 @@ class Resize(nn.Module):
     def _weights(self, h, oh, w, ow, dtype, device):
         key = (h, oh, w, ow, dtype, device)
         if key not in self._cache:
+            wide = torch.promote_types(dtype, torch.float32)
+
             def mat(n, m):
-                return torch.from_numpy(resize_matrix(n, m)).to(dtype).to(device, torch.float32)
+                return torch.from_numpy(resize_matrix(n, m)).to(dtype).to(device, wide)
             self._cache[key] = (mat(h, oh), mat(w, ow).T.contiguous())
         return self._cache[key]
 
     def forward(self, x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
         wy, wxt = self._weights(x.shape[-2], size[0], x.shape[-1], size[1], x.dtype, x.device)
+        wide = wy.dtype
         if self.h_first:
-            y = (wy @ x.float()).to(x.dtype)
-            return (y.float() @ wxt).to(x.dtype)
-        y = (x.float() @ wxt).to(x.dtype)
-        return (wy @ y.float()).to(x.dtype)
+            y = (wy @ x.to(wide)).to(x.dtype)
+            return (y.to(wide) @ wxt).to(x.dtype)
+        y = (x.to(wide) @ wxt).to(x.dtype)
+        return (wy @ y.to(wide)).to(x.dtype)
 
 
 class FPN(nn.Module):

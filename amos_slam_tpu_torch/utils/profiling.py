@@ -42,6 +42,10 @@ SPANS = (
     "slam.kf.loop",             # the loop closer: BoW dispatch, detect, verify, correct
     "slam.segmenter.net",       # Segmenter.raw: resize, normalise, the net
     "slam.segmenter.masks",     # detection, mask assembly and the resize out
+    "train.loader.wait",        # models/data.py: DataLoader blocked on its prefetch queue
+    "train.grads",              # models/train.value_and_grads: forward, loss and backward
+    "train.loss",               # its multibox loss after the net: matching, OHEM, the mask term
+    "train.sgd",                # models/train.sgd_update
 )
 _OFF = contextlib.nullcontext()
 

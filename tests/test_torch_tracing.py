@@ -17,6 +17,14 @@ max_kpts 512) and tests/test_torch_multistream.py (``MultiStreamSLAM``:
 * with no profiler, ``record_function`` is never entered, and the poses
   are the same to the bit as under the profiler.
 
+The training spans (``train.*``) over two steps of ``make_train_step`` at
+``yolact_tiny``'s net and size, fed by a ``DataLoader`` whose dataset is
+slowed so that the first batch is waited for: under the profiler the
+loader's wait, the gradient (with the loss inside it) and the SGD update
+are recorded, nested so; with no profiler no region is entered; the
+``TrainState`` is the same to the bit either way, and the loader counts
+its batches and waits.
+
 The ``cuda`` case (skips without a card) holds the shared clock: a kernel
 launched inside a span has its launch call inside the span and starts on
 the card after the span starts, less than 1 s later.
@@ -35,6 +43,8 @@ from torch.profiler import ProfilerActivity, profile
 from amos_slam_tpu_torch.config import (CameraConfig, MapConfig, ORBConfig, SystemConfig,
                                         TrackingConfig)
 from amos_slam_tpu_torch.io import synthetic
+from amos_slam_tpu_torch.models import configs, data, train
+from amos_slam_tpu_torch.models.segmenter import flax_init_
 from amos_slam_tpu_torch.parallel.multistream import MultiStreamSLAM
 from amos_slam_tpu_torch.system import System
 from amos_slam_tpu_torch.utils import profiling
@@ -244,6 +254,84 @@ def test_profiler_off_is_one_flag_read(monkeypatch):
         with profiling.span("slam.kf.insert", 7), profiling.span("slam.track"):
             pass
     assert rec.calls == [("slam.kf.insert", "frame=7"), ("slam.track", None)]
+
+
+TRAIN_PARENTS = {"train.loader.wait": {None}, "train.grads": {None},
+                 "train.loss": {"train.grads"}, "train.sgd": {None}}
+
+
+class SlowShapes(data.SyntheticShapes):
+    """SyntheticShapes whose samples take 20 ms each to make."""
+
+    def __getitem__(self, idx):
+        import time
+
+        time.sleep(0.02)
+        return super().__getitem__(idx)
+
+
+def run_train():
+    """Two steps of yolact_tiny from Flax's init (seed 0) on batches of 2."""
+    cfg = configs.get_config("yolact_tiny")
+    model = cfg.build(device="cpu")
+    flax_init_(model, torch.Generator().manual_seed(0))
+    init, step = train.make_train_step(model, torch.from_numpy(cfg.priors()), cfg.lr)
+    state = init({k: v.clone() for k, v in model.state_dict().items()})
+    loader = data.DataLoader(SlowShapes(n=16, size=cfg.img_size, seed=3), 2, cfg.img_size,
+                             cfg.max_objs, cfg.proto_shape, seed=5, device="cpu")
+    try:
+        for _ in range(2):
+            state = step(state, next(loader))[0]
+    finally:
+        loader.stop()
+    return state, (loader.batches, loader.waits)
+
+
+@pytest.fixture(scope="module")
+def trained():
+    """run_train under the profiler and with none: each run's state,
+    loader counts and regions entered, and the profiled run's train.*
+    events and window."""
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        for traced in (True, False):
+            rec = Recorder()
+            mp.setattr(profiling, "record_function", rec)
+            ctx = profile(activities=[ProfilerActivity.CPU]) if traced else contextlib.nullcontext()
+            with ctx as prof:
+                with torch.profiler.record_function(WINDOW):
+                    state, counts = run_train()
+            out["traced" if traced else "plain"] = (state, counts, rec.calls)
+            if traced:
+                evs = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+                       for e in prof.profiler.kineto_results.events()]
+                out["window"] = next((s, e) for n, s, e in evs if n == WINDOW)
+                out["spans"] = sorted((ev for ev in evs if ev[0].startswith("train.")),
+                                      key=lambda ev: (ev[1], -ev[2]))
+    return out
+
+
+def test_train_spans_are_recorded_nested_and_inside_the_window(trained):
+    names = [n for n, _, _ in trained["spans"]]
+    assert set(names) == set(TRAIN_PARENTS) and set(names) <= set(profiling.SPANS)
+    assert names.count("train.grads") == names.count("train.sgd") == names.count("train.loss") == 2
+    w0, w1 = trained["window"]
+    assert all(w0 <= s <= e <= w1 for _, s, e in trained["spans"])
+    for ev, parent in innermost_parents(trained["spans"]):
+        assert parent in TRAIN_PARENTS[ev[0]], (ev, parent)
+
+
+def test_train_without_profiler_enters_no_region_and_changes_no_bit(trained):
+    state_t, counts_t, calls_t = trained["traced"]
+    state_p, counts_p, calls_p = trained["plain"]
+    assert calls_p == [] and len(calls_t) == len(trained["spans"])
+    assert counts_t[0] == counts_p[0] == 2 and counts_t[1] >= 1 and counts_p[1] >= 1
+    assert int(state_t.step) == int(state_p.step) == 2
+    for part in ("params", "opt_state"):
+        a, b = getattr(state_t, part), getattr(state_p, part)
+        assert list(a) == list(b)
+        for k in a:
+            assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), (part, k)
 
 
 @pytest.mark.cuda

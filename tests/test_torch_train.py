@@ -23,11 +23,12 @@ shared_best_prior case at 128 px: 4.5e-8 in the port, -1.5e-7 in JAX,
 which moves a bn1 bias gradient by 1.5e-3 of its max; after such a jump
 two f32 runs part further at each step). In float64 each tensor's
 gradient is held within 1e-6 of its max |grad|, batch norm's four
-included (measured <= 9.3e-8), and after 3 steps from the JAX package's
+included (measured <= 3.7e-15), and after 3 steps from the JAX package's
 TrainState the params within 1e-6 of each tensor's max |change| and the
-momentum within 1e-6 of its max |value| (measured 6.5e-8 and 1.0e-7).
-Those gaps are the port's ``Resize``, which multiplies in f32 whatever the
-activations' dtype, as it must to round as XLA does in bf16. f64 JAX
+momentum within 1e-6 of its max |value| (measured 2.7e-13 and 7.7e-15).
+The gaps were ~1e-7 while the port's ``Resize`` multiplied float64
+activations in f32; it multiplies them in float64 now (in f32 for f32 and
+bf16, as it must to round as XLA does in bf16). f64 JAX
 steps cost ~2 s each at 64 px, ~10 s at 128. The positives-only mask term
 equals the JAX package's dense formula within 1e-6 relative, its
 gradients within 1e-5 of max (f32).
