@@ -5,15 +5,23 @@ Everything here is host numpy (and PIL) in both packages, drawn from the
 same numpy generators in the same order, so it must be exactly equal: the
 COCO decoders, the COCO dataset, ``SyntheticShapes``, ``augment_sample``,
 ``samples_to_gt_batch`` (the port's images are (B, 3, S, S), transposed
-here) and the first batches of two ``DataLoader``s with one seed. The
-card machine has PIL, so ``_resize`` is PIL's, as in the JAX package.
+here) and the first batches of two ``DataLoader``s with one seed, whatever
+the port's pool of sample processes. The port's loader is also held to the
+same batches under any caller timing, to raising a failed sample or a
+dead sample process from ``next`` and to ending its coordinator and
+processes on ``stop``. The card machine has PIL, so ``_resize`` is PIL's,
+as in the JAX package.
 ``test_training_learns_synthetic_shapes`` (slow) is the counterpart of the
 JAX package's training proof.
 """
 
 import dataclasses
 import json
+import multiprocessing
 import os
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -197,20 +205,179 @@ def test_samples_to_gt_batch_equal_jax():
             TD.samples_to_gt_batch(samples, 64, 2, (16, 16))
 
 
-def test_dataloader_batches_equal_jax():
-    """Two loaders, one seed: the first 3 batches are equal."""
+@pytest.mark.parametrize("aug", [
+    {}, {"expand": False, "crop": False},
+    {"photometric": False, "mirror": False, "expand_max": 4.0},
+])
+def test_plan_then_apply_is_augment_sample(aug):
+    """plan_augment's draws and apply_augment's pixels are augment_sample's,
+    in the same number of draws, and the plan alone holds the boxes and
+    labels the pixels end with."""
+    ds = TD.SyntheticShapes(n=12, size=96, seed=3, max_shapes=5)
+    cfg = TD.AugmentConfig(**aug)
+    a_rng, p_rng = np.random.default_rng(4), np.random.default_rng(4)
+    for i in range(12):
+        s = ds[i]
+        plan = TD.plan_augment(s["boxes"], s["labels"], s["image"].shape[:2], p_rng, cfg)
+        out = TD.apply_augment(s, plan)
+        equal_samples(out, TD.augment_sample(s, a_rng, cfg))
+        assert out["masks"].shape[1:] == out["image"].shape[:2]
+    assert a_rng.random() == p_rng.random()      # the same number of draws
+    equal_samples(s, ds[11])                       # the sample itself is left as it was
+
+
+def pool_of(monkeypatch, workers):
+    """Loaders built from here on use ``workers`` sample processes (None:
+    the machine's default)."""
+    if workers is not None:
+        monkeypatch.setattr(TD, "_pool_size", lambda batch_size: workers)
+
+
+@pytest.mark.parametrize("workers", [1, 3, None], ids=["pool1", "pool3", "default"])
+def test_dataloader_batches_equal_jax(monkeypatch, workers):
+    """Two loaders, one seed: the first 3 batches are equal, whatever the
+    port's pool size."""
+    pool_of(monkeypatch, workers)
     kw = dict(batch_size=3, img_size=64, max_objs=4, proto_hw=(16, 16), seed=1, prefetch=2)
     j = JD.DataLoader(JD.SyntheticShapes(n=16, size=64, seed=7), **kw)
     t = TD.DataLoader(TD.SyntheticShapes(n=16, size=64, seed=7), **kw, device="cpu")
     try:
+        assert t.workers == (workers or TD._pool_size(3))
         for _ in range(3):
             equal_batches(next(j), next(t))
+        assert t.batches == 3 and t.build_s > 0
     finally:
         j.stop()
         t.stop()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TD.DataLoader(TD.SyntheticShapes(n=4, size=64), **kw)
+
+
+def test_pool_size_from_the_cpus(monkeypatch):
+    """One sample process per CPU the process may use, less two, at most
+    one per sample of a batch, at least one."""
+    for cpus, batch, want in ((8, 8, 6), (8, 4, 4), (2, 8, 1), (1, 8, 1), (32, 8, 8)):
+        monkeypatch.setattr(TD.os, "sched_getaffinity", lambda pid, n=cpus: set(range(n)))
+        assert TD._pool_size(batch) == want
+
+
+@pytest.mark.parametrize("workers", [2, None], ids=["pool2", "default"])
+def test_dataloader_batches_independent_of_timing(monkeypatch, workers):
+    """One seed, the same first 4 batches under a caller that sleeps at
+    random between batches (the queue full, the pool idle) and one that
+    never sleeps."""
+    pool_of(monkeypatch, workers)
+    kw = dict(batch_size=4, img_size=48, max_objs=6, proto_hw=(12, 12), seed=9, prefetch=1,
+              device="cpu")
+    runs = []
+    for sleepy in (False, True):
+        pause = np.random.default_rng(3)
+        dl = TD.DataLoader(TD.SyntheticShapes(n=32, size=64, seed=2, max_shapes=5), **kw)
+        try:
+            got = []
+            for _ in range(4):
+                if sleepy:
+                    time.sleep(float(pause.uniform(0, 0.3)))
+                got.append(next(dl))
+        finally:
+            dl.stop()
+        runs.append(got)
+    for a, b in zip(*runs):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+class Faulty(TD.SyntheticShapes):
+    """SyntheticShapes that fails at index 2: raising there ("made"),
+    raising an exception that cannot be pickled ("unpicklable"), or
+    returning a sample with no masks ("filled")."""
+
+    where = "made"
+
+    def __getitem__(self, idx):
+        s = super().__getitem__(idx)
+        if idx == 2:
+            if self.where == "made":
+                raise ValueError("sample 2 is unreadable")
+            if self.where == "unpicklable":
+                raise ValueError(lambda: "sample 2")
+            del s["masks"]
+        return s
+
+
+FAILURES = {"made": ValueError, "unpicklable": RuntimeError, "filled": KeyError}
+
+
+@pytest.mark.parametrize("where", list(FAILURES))
+def test_dataloader_raises_a_failed_sample(where):
+    """An exception in a sample reaches the caller from next() instead of
+    leaving next() waiting forever; one that cannot cross to this process
+    arrives as its traceback's text."""
+    ds = Faulty(n=4, size=48, seed=1)
+    ds.where = where
+    dl = TD.DataLoader(ds, 3, 48, 4, (12, 12), seed=0, device="cpu")
+    calls = ThreadPoolExecutor(1)
+    try:
+        with pytest.raises(FAILURES[where], match="sample 2|masks") as got:
+            for _ in range(50):
+                calls.submit(next, dl).result(timeout=30)
+        assert "in DataLoader sample process" in "".join(
+            getattr(got.value, "__notes__", [])) + str(got.value)
+    finally:
+        dl.stop()
+        calls.shutdown()
+
+
+def loader_parts():
+    """The live threads and child processes of every DataLoader."""
+    return ([t.name for t in threading.enumerate() if t.name.startswith("DataLoader")]
+            + [p.name for p in multiprocessing.active_children()
+               if p.name.startswith("DataLoader")])
+
+
+def test_stop_leaves_no_thread_or_process():
+    """stop() ends the coordinator and every sample process, with batches
+    queued, mid-build, or after a failure; next() then stops iterating."""
+    before = loader_parts()
+    for where in (None, "made"):
+        ds = Faulty(n=16, size=48, seed=1) if where else TD.SyntheticShapes(n=16, size=48)
+        dl = TD.DataLoader(ds, 4, 48, 4, (12, 12), seed=0, device="cpu")
+        if where is None:
+            next(dl)
+        else:
+            time.sleep(0.5)
+        started = [n for n in loader_parts() if n not in before]
+        assert sum(n.startswith("DataLoader.sample") for n in started) == dl.workers
+        assert "DataLoader.coordinator" in started or dl._error is not None
+        dl.stop()
+        assert loader_parts() == before
+        assert all(p.exitcode is not None for p in dl._procs)
+        if where is None:
+            with pytest.raises(StopIteration):
+                next(dl)
+
+
+class Dying(TD.SyntheticShapes):
+    """SyntheticShapes whose process exits at index 2."""
+
+    def __getitem__(self, idx):
+        if idx == 2:
+            os._exit(3)
+        return super().__getitem__(idx)
+
+
+def test_dataloader_raises_a_dead_process():
+    """A sample process that dies is raised from next(), not waited for."""
+    dl = TD.DataLoader(Dying(n=4, size=48, seed=1), 3, 48, 4, (12, 12), seed=0, device="cpu")
+    calls = ThreadPoolExecutor(1)
+    try:
+        with pytest.raises(RuntimeError, match="exited with code 3"):
+            for _ in range(50):
+                calls.submit(next, dl).result(timeout=30)
+    finally:
+        dl.stop()
+        calls.shutdown()
 
 
 @pytest.mark.slow
